@@ -1,0 +1,112 @@
+"""Actor-critic network, acting side, as an ``nn.Module``.
+
+Counterpart of ``pfpn_tpu/networks/actor_critic.py``: clipped state
+normalizer -> optional shared trunk -> actor MLP (relu6 after every layer)
++ particle head; critic MLP -> value. This slice ports
+:meth:`ActorCritic.act_deterministic` and :meth:`ActorCritic.value`
+(``actor_critic.py:149``, :164) and :func:`load_jax_params`, which carries
+the JAX package's weights across. Sampling, log-prob, entropy and value
+normalization come with the training slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+from torch.nn import functional as F
+
+from .heads import ParticleHead, ParticleHeadModule
+from .mlp import MLP
+from .normalizer import Normalizer
+
+
+@dataclasses.dataclass(frozen=True)
+class ACConfig:
+    obs_dim: int
+    head: ParticleHead
+    common_shape: Tuple[int, ...] = ()
+    actor_shape: Tuple[int, ...] = (1024, 512)
+    critic_shape: Tuple[int, ...] = (1024, 512)
+    normalize_state: bool = True
+    clip_state: Optional[float] = 5.0
+
+
+class ActorCritic(nn.Module):
+    def __init__(self, cfg: ACConfig):
+        super().__init__()
+        self.cfg = cfg
+        self.norm = Normalizer((cfg.obs_dim,))
+        feat = cfg.obs_dim
+        self.common = None
+        if cfg.common_shape:
+            self.common = MLP([feat, *cfg.common_shape], last_activation=F.relu6)
+            feat = cfg.common_shape[-1]
+        actor_feat = feat
+        self.actor_trunk = None
+        if cfg.actor_shape:
+            self.actor_trunk = MLP([feat, *cfg.actor_shape], last_activation=F.relu6)
+            actor_feat = cfg.actor_shape[-1]
+        self.head = ParticleHeadModule(cfg.head, actor_feat)
+        self.critic = MLP([feat, *cfg.critic_shape, 1])
+
+    def _features(self, obs: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        if cfg.normalize_state:
+            x = self.norm(obs, clip=cfg.clip_state)
+        elif cfg.clip_state:
+            x = torch.clamp(obs, -cfg.clip_state, cfg.clip_state)
+        else:
+            x = obs
+        return self.common(x) if self.common is not None else x
+
+    def actor_features(self, obs: torch.Tensor) -> torch.Tensor:
+        x = self._features(obs)
+        return self.actor_trunk(x) if self.actor_trunk is not None else x
+
+    def value(self, obs: torch.Tensor) -> torch.Tensor:
+        return self.critic(self._features(obs))[..., 0]
+
+    def dist(self, obs: torch.Tensor):
+        return self.head.dist(self.actor_features(obs))
+
+    def act_deterministic(self, obs: torch.Tensor) -> torch.Tensor:
+        return self.head.deterministic_action(self.actor_features(obs))
+
+
+def load_jax_params(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+    """The JAX package's flat ``params/...`` and ``norm/...`` arrays (the
+    layout of ``tools/export_policy.py:25-55``, ``:130-139``) as an
+    :class:`ActorCritic` state dict (fp32, CPU): ``params/<mlp>/#<i>/w``
+    (in, out) becomes ``<mlp>.layers.<i>.weight`` (out, in)."""
+    state: Dict[str, torch.Tensor] = {}
+    for key, val in flat.items():
+        t = torch.tensor(np.asarray(val, dtype=np.float32))
+        parts = key.split("/")
+        if parts[0] == "norm":
+            state[f"norm.{parts[1]}"] = t
+            continue
+        if parts[0] != "params":
+            raise KeyError(f"unexpected key {key!r}")
+        parts = parts[1:]
+        if parts[0] == "head":
+            if parts[1] == "fc_policy":
+                state[f"head.fc_policy.{_linear_name(parts[2])}"] = _linear(parts[2], t)
+            else:
+                state[f"head.{parts[1]}"] = t
+        else:
+            mlp, layer, leaf = parts
+            idx = int(layer.lstrip("#"))
+            state[f"{mlp}.layers.{idx}.{_linear_name(leaf)}"] = _linear(leaf, t)
+    return state
+
+
+def _linear_name(leaf: str) -> str:
+    return {"w": "weight", "b": "bias"}[leaf]
+
+
+def _linear(leaf: str, t: torch.Tensor) -> torch.Tensor:
+    return t.T.contiguous() if leaf == "w" else t
