@@ -2,9 +2,11 @@
 
 The package mirrors the module paths of the JAX package: every module here
 names the JAX function it replaces and is held against it in
-``tests/test_torch_*.py``. Plain tensor code is PyTorch; the one kernel on
-the acting path, the 30 Hz control-step "megastep", is hand-written CUDA
-(``csrc/megastep.cu``, bound in ``ops/megastep.py``).
+``tests/test_torch_*.py``. Plain tensor code is PyTorch; the kernels are
+hand-written CUDA (``csrc/``, built and loaded by ``ops/_build.py``): the
+30 Hz control-step "megastep" of the acting path (``ops/megastep.py``), and
+the substep's linear algebra (``ops/substep_lin.py``) and the SPD inverse
+(``ops/linalg.py``) of the per-substep path.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 asking for CUDA without a card raises (:func:`resolve_device`).

@@ -1,17 +1,19 @@
 """DeepMimic humanoid imitation task, batched over environments.
 
-Counterpart of ``pfpn_tpu/envs/deepmimic.py`` on the SPD megastep path:
-:func:`make` (Walk), the action tables and ``_action_to_targets``, ``reset``
-with reference-state initialization and the ground-penetration lift,
-``step`` through :meth:`Engine.control_step_full` (the CUDA megastep on the
-card) with the closed-form phase-wrap re-sync, the 197-dim observation, the
-five-term imitation reward on the dense reference tables, ``step_batch`` and
-``step_autoreset``.
+Counterpart of ``pfpn_tpu/envs/deepmimic.py``: :func:`make` (Walk), the
+action tables and ``_action_to_targets`` of the three control modes (SPD,
+torque, position), ``reset`` with reference-state initialization and the
+ground-penetration lift, ``step`` (through :meth:`Engine.control_step_full`,
+the CUDA megastep on the card, with the closed-form phase-wrap re-sync; or,
+with the megastep off or another control mode, a loop of
+:meth:`Engine.substep` with the per-substep re-sync), the torque-log
+channel (``step_log``, ``torque_log``), the 197-dim observation, the
+five-term imitation reward on the dense reference tables, ``step_batch``
+and ``step_autoreset``.
 
 Every function takes the whole batch: the JAX env is per environment and
 batched with ``vmap``, here the leading dim ``B`` is written out. Random
-phases come from an explicit ``torch.Generator``. The torque-log channel
-(``step_log``) is still to be ported.
+phases come from an explicit ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -83,14 +85,16 @@ class DeepMimicEnv:
     overtime = 20.0          # time limit of an episode, seconds
     control_range = 4.0
 
-    def __init__(self, motion: str = "walk", device=None):
+    def __init__(self, motion: str = "walk", control_mode: str = "spd", device=None):
         self.device = resolve_device(device)
         self.tree: KinematicTree = humanoid_tree()
         self.motion_name = motion
         self.motion: MotionData = load_motion(self.tree, motion)
         self.dt = 1.0 / (self.fps * self.frame_skip)
+        self.control_mode = control_mode
 
-        cfg = EngineConfig(dt=self.dt, frame_skip=self.frame_skip)
+        cfg = EngineConfig(dt=self.dt, frame_skip=self.frame_skip,
+                           control_mode=control_mode)
         gains = build_gains(self.tree, HUMANOID_KP, HUMANOID_KD)
         self.engine = Engine(self.tree, cfg, gains)
 
@@ -101,22 +105,33 @@ class DeepMimicEnv:
 
     # -- static tables ---------------------------------------------------
     def _build_action_space(self):
-        """Action normalization tables for SPD control (deepmimic.py:118)."""
+        """Action normalization tables (deepmimic.py:118): targets for SPD
+        and position control, torques (one per dof) for torque control."""
         tree = self.tree
         mean, std, lo, hi = [], [], [], []
-        for m, b in enumerate(tree.motor_bodies):
-            l, u = tree.motor_movement_limit[m]
-            if tree.joint_type[b] == REVOLUTE:
-                mean.append(0.5 * (u + l))
-                std.append((u - l) * 0.5 * self.control_range)
-                lo.append(-1.0)
-                hi.append(1.0)
-            else:
-                y_off, z_off = 0.0, 0.2  # y-up
-                mean.extend([0.0, y_off, z_off, 0.0])
-                std.extend([1.0, 1.0, 1.0, (u - l) * 0.5 * self.control_range])
-                lo.extend([-1.0, -1.0 - y_off, -1.0 - z_off, -1.0])
-                hi.extend([1.0, 1.0 - y_off, 1.0 - z_off, 1.0])
+        self._torque_cols = []   # each motor's torque columns, tree.motor_* order
+        if self.control_mode in ("spd", "position"):
+            for m, b in enumerate(tree.motor_bodies):
+                l, u = tree.motor_movement_limit[m]
+                if tree.joint_type[b] == REVOLUTE:
+                    mean.append(0.5 * (u + l))
+                    std.append((u - l) * 0.5 * self.control_range)
+                    lo.append(-1.0)
+                    hi.append(1.0)
+                else:
+                    y_off, z_off = 0.0, 0.2  # y-up
+                    mean.extend([0.0, y_off, z_off, 0.0])
+                    std.extend([1.0, 1.0, 1.0, (u - l) * 0.5 * self.control_range])
+                    lo.extend([-1.0, -1.0 - y_off, -1.0 - z_off, -1.0])
+                    hi.extend([1.0, 1.0 - y_off, 1.0 - z_off, 1.0])
+        else:
+            for m, b in enumerate(tree.motor_bodies):
+                n = 1 if tree.joint_type[b] == REVOLUTE else 3
+                self._torque_cols.append(slice(len(mean), len(mean) + n))
+                mean.extend([0.0] * n)
+                std.extend([tree.motor_torque_limit[m]] * n)
+                lo.extend([-1.0] * n)
+                hi.extend([1.0] * n)
         self.action_mean = np.array(mean, dtype=np.float32)
         self.action_std = np.array(std, dtype=np.float32)
         self.action_low = np.array(lo, dtype=np.float32)
@@ -202,11 +217,19 @@ class DeepMimicEnv:
         return const(self.action_mean, a) + a * const(self.action_std, a)
 
     def _action_to_targets(self, action: torch.Tensor):
-        """Unnormalized actions (B, A) -> SPD targets (B, n_sph, 4), (B, n_rev)."""
+        """Unnormalized actions (B, A) -> (targets (B, n_sph, 4), (B, n_rev),
+        per-motor torques or None) (deepmimic.py:244). Torque control keeps
+        identity targets and returns the torques in tree.motor_* order."""
+        if self.control_mode == "torque":
+            B = action.shape[0]
+            t_sph = torch.zeros(B, self.tree.n_sph, 4, device=action.device)
+            t_sph[..., 3] = 1.0
+            t_rev = torch.zeros(B, self.tree.n_rev, device=action.device)
+            return t_sph, t_rev, [action[:, c] for c in self._torque_cols]
         sph = action[:, index_const(self._sph_cols, action)]      # (B, n_sph, 4)
         t_sph = quat.quat_from_axis_angle(sph[..., :3], sph[..., 3])
         t_rev = action[:, index_const(self._rev_cols, action)]
-        return t_sph, t_rev
+        return t_sph, t_rev, None
 
     def _sim_from_pose(self, pose) -> SimState:
         return SimState(
@@ -263,9 +286,15 @@ class DeepMimicEnv:
 
     # -- step ------------------------------------------------------------
     def step(self, state: EnvState, action: torch.Tensor) -> StepResult:
-        """One 30 Hz control step of the batch through the megastep
-        (deepmimic.py:320-396)."""
-        t_sph, t_rev = self._action_to_targets(self.unnormalize_action(action))
+        """One 30 Hz control step of the batch (deepmimic.py:320-396):
+        through the megastep, or, when the engine has none or the actions
+        are torques, through ``frame_skip`` substeps."""
+        t_sph, t_rev, torques = self._action_to_targets(self.unnormalize_action(action))
+        if self.engine.mega is None or torques is not None:
+            sim, elapsed, off, last_contact, _ = self._substep_loop(
+                state, t_sph, t_rev, torques, return_torque=False)
+            return self._finish(state, sim, elapsed, off, last_contact)
+
         duration = self.motion.duration
         sim, active, hist = self.engine.control_step_full(state.sim, t_sph, t_rev)
         last_contact = self.engine.link_contact_from_active(active)
@@ -284,7 +313,34 @@ class DeepMimicEnv:
         rows = torch.arange(hist.shape[0], device=hist.device)
         new_off = sync_position_offset(self.motion, e_star, hist[rows, s_star], UP)
         off = torch.where(wrapped_any[:, None], new_off, state.ref_pos_offset)
+        return self._finish(state, sim, elapsed, off, last_contact)
 
+    def _substep_loop(self, state: EnvState, t_sph, t_rev, torques,
+                      return_torque: bool):
+        """``frame_skip`` engine substeps, re-syncing the reference root
+        offset after the substep whose time wraps the motion's phase
+        (deepmimic.py:354-371). Returns (sim, elapsed, offset, last
+        link_contact, torque history (B, frame_skip, ndof) or None)."""
+        duration = self.motion.duration
+        sim, elapsed, off = state.sim, state.elapsed_time, state.ref_pos_offset
+        taus = []
+        for _ in range(self.frame_skip):
+            out = self.engine.substep(sim, t_sph, t_rev, torques,
+                                      return_torque=return_torque)
+            sim, link_contact = out[0], out[1]
+            if return_torque:
+                taus.append(out[2])
+            new_elapsed = elapsed + self.dt
+            wrapped = (torch.remainder(new_elapsed, duration)
+                       < torch.remainder(elapsed, duration))
+            new_off = sync_position_offset(self.motion, new_elapsed, sim.base_pos, UP)
+            off = torch.where(wrapped[:, None], new_off, off)
+            elapsed = new_elapsed
+        return sim, elapsed, off, link_contact, (torch.stack(taus, 1) if taus else None)
+
+    def _finish(self, state: EnvState, sim: SimState, elapsed, off,
+                last_contact) -> StepResult:
+        """Termination, reward and observation after a control step."""
         state = EnvState(sim=sim, elapsed_time=elapsed,
                          init_time=state.init_time, ref_pos_offset=off)
         if self.has_termination:
@@ -299,6 +355,37 @@ class DeepMimicEnv:
         done = terminated | truncated
         return StepResult(state, self.observe(state, ls=ls), reward, done,
                           terminated, truncated)
+
+    # -- torque-log channel (deepmimic.py:400-466) -------------------------
+    def step_log(self, state: EnvState, action: torch.Tensor):
+        """Like :meth:`step`, through the unfused substep, also returning
+        the applied per-dof torque history (B, frame_skip, ndof): the
+        reference's info["log"]["torque"] channel (see :meth:`torque_log`)."""
+        t_sph, t_rev, torques = self._action_to_targets(self.unnormalize_action(action))
+        sim, elapsed, off, last_contact, tau_hist = self._substep_loop(
+            state, t_sph, t_rev, torques, return_torque=True)
+        return self._finish(state, sim, elapsed, off, last_contact), tau_hist
+
+    @property
+    def torque_channels(self):
+        """(name, dof) per logged channel: revolute joints under their name,
+        spherical ones under name_{x,y,z} (deepmimic.py:441)."""
+        tree = self.tree
+        channels = []
+        for m, b in enumerate(tree.motor_bodies):
+            d = int(tree.dof_offset[b])
+            name = tree.motor_names[m]
+            if int(tree.joint_type[b]) == REVOLUTE:
+                channels.append((name, d))
+            else:
+                channels.extend((f"{name}_{ax}", d + i) for i, ax in enumerate("xyz"))
+        return channels
+
+    def torque_log(self, tau_hist) -> dict:
+        """Host-side: (.., frame_skip, ndof) torque history -> the
+        reference's named-channel dict of numpy arrays."""
+        hist = torch.as_tensor(tau_hist).detach().cpu().numpy()
+        return {name: hist[..., d] for name, d in self.torque_channels}
 
     # -- observation (deepmimic.py:469) -----------------------------------
     def observe(self, state: EnvState, ls: Optional[LinkStates] = None) -> torch.Tensor:
@@ -399,13 +486,14 @@ class DeepMimicEnv:
         return (tree_map(pick, reset_states, res.state), pick(reset_obs, res.obs), res)
 
 
-def make(env_name: str, device=None) -> DeepMimicEnv:
-    """gym.make-style constructor (deepmimic.py:630). Only Walk is ported."""
+def make(env_name: str, device=None, **kwargs) -> DeepMimicEnv:
+    """gym.make-style constructor (deepmimic.py:630); ``kwargs`` go to
+    :class:`DeepMimicEnv` (``control_mode``). Only Walk is ported."""
     name = env_name[:-3] if env_name.endswith("-v0") else env_name
     if not name.startswith("DeepMimic"):
         raise ValueError(f"unknown env {env_name}")
     motion = name[len("DeepMimic"):].lower()
     if motion != "walk":
         raise NotImplementedError(f"{env_name}: only DeepMimicWalk-v0 is ported")
-    return DeepMimicEnv(motion=motion, device=device)
+    return DeepMimicEnv(motion=motion, device=device, **kwargs)
 

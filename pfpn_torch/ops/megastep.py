@@ -5,8 +5,8 @@ Counterpart of ``pfpn_tpu/ops/megastep.py``. :class:`MegaMeta`,
 ``megastep.py:56-271``. The TPU kernel (``_make_kernel``, launched by
 ``megastep_pallas``) becomes ``csrc/megastep.cu``: hand-written CUDA C++ for
 ``sm_90a``, one environment per thread, compiled with ``nvcc`` at first use
-into ``build/`` and bound with ctypes (a plain C interface, no PyTorch
-headers). :class:`Megastep` is the wrapper:
+into ``build/`` and bound with ctypes (``ops/_build.py``). :class:`Megastep`
+is the wrapper:
 
 * on a CUDA tensor it launches the kernel on the current stream, raises if
   the launch is refused, and adds one to ``launches``;
@@ -21,24 +21,15 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
-import hashlib
-import os
-import shutil
-import subprocess
 from typing import Callable, Optional, Tuple
 
 import numpy as np
 import torch
 
+from ._build import CudaSource
+
 F3 = Tuple[float, float, float]
 F4 = Tuple[float, float, float, float]
-
-_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCE = os.path.join(_PKG, "csrc", "megastep.cu")
-BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-HOST_FLAGS = ("-x", "c++", "-std=c++17", "-O2", "-shared", "-fPIC")
 
 # capacities of the static tables (MS_MAX* in csrc/megastep.cu)
 MAXB, MAXD, MAXC, MAXK, MAXL, MAXS, MAXR = 16, 40, 48, 16, 8, 12, 8
@@ -360,10 +351,12 @@ def pack_tables(meta: MegaMeta) -> MegaTables:
 
 
 def megastep_flops(meta: MegaMeta, substeps: Optional[int] = None) -> int:
-    """fp32 operations of one env's kernel call, counted from the loops of
-    csrc/megastep.cu (an FMA counts two; sqrt, division and the
-    transcendentals count one). The work does not depend on the data:
-    every loop runs its full static length."""
+    """fp32 operations one env's control step needs, for the kernel's bound
+    (an FMA counts two; sqrt, division and the transcendentals count one).
+    Most terms follow the loops of csrc/megastep.cu; the two inverses count
+    as the least they need, a Cholesky factor each (n^3/3) and one solve
+    each (2 n^2), where the kernel runs two full Gauss-Jordan sweeps and
+    refines each solve once. The work does not depend on the data."""
     n, K, nb, C = meta.ndof, meta.n_contacts, meta.nb, meta.n_cand
     K3, R, it, L = 3 * K, meta.n_rows, meta.iterations, meta.n_lim
     pairs = 0                                  # ancestor-or-self dof pairs
@@ -374,7 +367,6 @@ def megastep_flops(meta: MegaMeta, substeps: Optional[int] = None) -> int:
             j = meta.parent[j]
         pairs += sum(1 for d in range(e + 1) if meta.dof_body[d] in chain)
     n_sph_m, n_rev_m = len(meta.sph_motors), len(meta.rev_motors)
-    sweep = n * (2 * (n - 1) ** 2 + 2 * n + 1) + n * n
     per_sub = (
         2 * (nb - 1) * 120                        # FK, world and base frame
         + 30 + 40 * n                             # velocity, columns
@@ -383,8 +375,8 @@ def megastep_flops(meta: MegaMeta, substeps: Optional[int] = None) -> int:
         + 30 * n + 23 * pairs                     # H
         + nb * 260 + 12 * n                       # bias forces, C
         + 120 * n_sph_m + 10 * n_rev_m            # SPD errors
-        + 2 * sweep                               # two Gauss-Jordan inverses
-        + 2 * 2 * n * n + 2 * (4 * n * n + 4 * n)  # two solves, refined
+        + 2 * (n ** 3 // 3)                       # two Cholesky factors
+        + 2 * 2 * n * n                           # two solves
         + 10 * (n_sph_m + n_rev_m) + 3 * n        # torque clamp, v*
         + 25 * C + K * (C + 12 * n)              # candidates, top-K rows
         + 2 * n * n * K3 + n * L                  # W
@@ -401,71 +393,25 @@ def megastep_flops(meta: MegaMeta, substeps: Optional[int] = None) -> int:
 # building and loading the kernel
 # ---------------------------------------------------------------------------
 
-def _nvcc() -> str:
-    for cand in (shutil.which("nvcc"),
-                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
-                              "bin", "nvcc")):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the megastep kernel is built from "
-                       "csrc/megastep.cu with the CUDA toolkit")
-
-
-def build_library(host: bool = False) -> Tuple[str, str]:
-    """Compile csrc/megastep.cu into build/ (at most once per source text).
-
-    ``host=False``: nvcc for sm_90a, the kernel. ``host=True``: g++ builds
-    the same per-env body as plain C++ (for the CPU tests). Returns
-    (library path, compiler output)."""
-    with open(SOURCE, "rb") as fh:
-        digest = hashlib.sha256(fh.read()).hexdigest()[:12]
-    kind = "host" if host else "sm90a"
-    out = os.path.join(BUILD_DIR, f"libpfpn_megastep_{kind}_{digest}.so")
-    if os.path.exists(out):
-        return out, ""
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{out}.{os.getpid()}.tmp"
+def _declare(lib, host: bool):
+    ptrs = [ctypes.c_void_p] * 8
     if host:
-        cxx = shutil.which("g++") or shutil.which("c++")
-        if cxx is None:
-            raise RuntimeError("no C++ compiler for the host build")
-        cmd = [cxx, *HOST_FLAGS, SOURCE, "-o", tmp]
+        fn = lib.pfpn_megastep_host
+        fn.argtypes = ptrs + [ctypes.c_int, ctypes.c_int]
     else:
-        cmd = [_nvcc(), *NVCC_FLAGS, SOURCE, "-o", tmp]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"building {SOURCE} failed:\n{' '.join(cmd)}\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, out)
-    return out, proc.stdout + proc.stderr
+        fn = lib.pfpn_megastep_launch
+        fn.argtypes = ptrs + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    lib.pfpn_megastep_tables_bytes.argtypes = []
+    lib.pfpn_megastep_tables_bytes.restype = ctypes.c_int
+    lib.pfpn_megastep_ws_floats.argtypes = [ctypes.c_void_p]
+    lib.pfpn_megastep_ws_floats.restype = ctypes.c_longlong
+    if lib.pfpn_megastep_tables_bytes() != ctypes.sizeof(MegaTables):
+        raise RuntimeError("MegaTables layout differs between "
+                           "csrc/megastep.cu and ops/megastep.py")
 
 
-_LIBS: dict = {}
-
-
-def load_library(host: bool = False) -> ctypes.CDLL:
-    """The built library, loaded once per process (``host`` as in
-    :func:`build_library`)."""
-    lib = _LIBS.get(host)
-    if lib is None:
-        lib = ctypes.CDLL(build_library(host)[0])
-        ptrs = [ctypes.c_void_p] * 8
-        if host:
-            fn = lib.pfpn_megastep_host
-            fn.argtypes = ptrs + [ctypes.c_int, ctypes.c_int]
-        else:
-            fn = lib.pfpn_megastep_launch
-            fn.argtypes = ptrs + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        lib.pfpn_megastep_tables_bytes.argtypes = []
-        lib.pfpn_megastep_tables_bytes.restype = ctypes.c_int
-        lib.pfpn_megastep_ws_floats.argtypes = [ctypes.c_void_p]
-        lib.pfpn_megastep_ws_floats.restype = ctypes.c_longlong
-        if lib.pfpn_megastep_tables_bytes() != ctypes.sizeof(MegaTables):
-            raise RuntimeError("MegaTables layout differs between "
-                               "csrc/megastep.cu and ops/megastep.py")
-        _LIBS[host] = lib
-    return lib
+LIBRARY = CudaSource("megastep", _declare)
 
 
 # ---------------------------------------------------------------------------
@@ -536,7 +482,7 @@ class Megastep:
         for name, x in (("st", st), ("tgt_sph", tgt_sph), ("tgt_rev", tgt_rev)):
             if not x.is_contiguous():
                 raise ValueError(f"megastep {name} must be contiguous")
-        lib = load_library()
+        lib = LIBRARY.load()
         dev = st.device
         tables = self._tables_dev.get(dev)
         if tables is None:
@@ -548,11 +494,12 @@ class Megastep:
         act = torch.empty(B, m.n_cand, device=dev)
         hist = torch.empty(B, substeps, 3, device=dev)
         ws = torch.empty(self._ws_floats(lib) * B, device=dev)
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        rc = lib.pfpn_megastep_launch(
-            tables.data_ptr(), st.data_ptr(), tgt_sph.data_ptr(),
-            tgt_rev.data_ptr(), st_out.data_ptr(), act.data_ptr(),
-            hist.data_ptr(), ws.data_ptr(), B, substeps, stream)
+        with torch.cuda.device(dev):     # the launch goes to the current device
+            rc = lib.pfpn_megastep_launch(
+                tables.data_ptr(), st.data_ptr(), tgt_sph.data_ptr(),
+                tgt_rev.data_ptr(), st_out.data_ptr(), act.data_ptr(),
+                hist.data_ptr(), ws.data_ptr(), B, substeps,
+                torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"megastep kernel launch failed: cudaError {rc}")
         self.launches += 1
@@ -566,7 +513,7 @@ class Megastep:
         substeps = self._check(st, tgt_sph, tgt_rev, substeps)
         st, tgt_sph, tgt_rev = (x.detach().cpu().contiguous()
                                 for x in (st, tgt_sph, tgt_rev))
-        lib = load_library(host=True)
+        lib = LIBRARY.load(host=True)
         B = st.shape[0]
         st_out = torch.empty_like(st)
         act = torch.empty(B, m.n_cand)

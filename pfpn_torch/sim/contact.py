@@ -1,10 +1,12 @@
-"""Ground-plane contact candidates and constraint-row assembly, batched.
+"""Ground-plane contacts: candidates, constraint rows and the unfused solve.
 
-Counterpart of ``pfpn_tpu/sim/contact.py:40-320``: the static candidate
+Counterpart of ``pfpn_tpu/sim/contact.py:40-380``: the static candidate
 points (sphere centres, capsule end caps, box corners), their world
-positions, the top-K deepest selection, point Jacobians, Baumgarte targets
-and the revolute joint-limit rows. The projected-Jacobi solve itself lives
-with the substep math (``ops/substep_lin.py``) and in the CUDA megastep.
+positions, the top-K deepest selection, point Jacobians, Baumgarte targets,
+the revolute joint-limit rows, and :func:`solve`, the projected-Jacobi
+solve of the unfused substep from an explicit H^-1. That solve is plain
+PyTorch, as in JAX, where it is XLA code outside any kernel; the fused
+substep solves inside ``csrc/substep_lin.cu`` and the CUDA megastep.
 """
 
 from __future__ import annotations
@@ -15,6 +17,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from ..ops.substep_lin import pgs_solve
 from .dynamics import FKResult, const, index_const
 from .types import FREE, GEOM_BOX, GEOM_CAPSULE, GEOM_SPHERE, KinematicTree, REVOLUTE, SPHERICAL
 
@@ -254,3 +257,24 @@ def assemble_rows(tree: KinematicTree, cs: ContactSet, params: ContactParams,
     return RowSet(rows=rows, target=target, act_n=active.to(ref.dtype),
                   act_l=lim_active, active_all=active_all,
                   link_contact=link_contact)
+
+
+class ContactSolution(NamedTuple):
+    dv: torch.Tensor             # (B, ndof) velocity change W lam
+    penetrating: torch.Tensor    # (B, np_all) bool per candidate point
+    link_contact: torch.Tensor   # (B, nl+1) bool per reference link (+base)
+
+
+def solve(tree: KinematicTree, cs: ContactSet, params: ContactParams,
+          fkr: FKResult, h_inv: torch.Tensor, v_star: torch.Tensor,
+          q_rev: torch.Tensor, dt: float) -> ContactSolution:
+    """Contact and joint-limit impulses for the pre-constraint velocity
+    v_star (B, ndof), from the explicit inverse h_inv (B, ndof, ndof)
+    (contact.py:322): W = H^-1 J^T, A = J W, the Gershgorin step and
+    ``params.iterations`` projected-Jacobi sweeps."""
+    rs = assemble_rows(tree, cs, params, fkr, q_rev, dt)
+    w = h_inv @ rs.rows.transpose(-1, -2)                      # (B, ndof, R)
+    dv = pgs_solve(rs.rows, w, v_star, rs.target, rs.act_n, rs.act_l,
+                   params.mu, params.cfm, params.relaxation, params.iterations)
+    return ContactSolution(dv=dv, penetrating=rs.active_all,
+                           link_contact=rs.link_contact)

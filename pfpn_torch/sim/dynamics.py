@@ -2,7 +2,7 @@
 
 Counterpart of ``pfpn_tpu/sim/dynamics.py:128-397``: forward kinematics,
 the CRBA mass matrix, RNEA bias forces, velocity packing, semi-implicit
-integration and Bullet-style link states. Every function takes a batch of
+integration, the motor-torque scatter and Bullet-style link states. Every function takes a batch of
 environments (leading dim ``B``); the loops over the static tree unroll in
 Python exactly as the JAX version unrolls them at trace time. Generalized
 velocity layout (per env):
@@ -310,6 +310,17 @@ def advance(tree: KinematicTree, state: SimState, fkr: FKResult,
     return state.replace(base_pos=base_pos, base_quat=base_quat,
                          base_ang=base_ang, base_lin=base_lin,
                          q_sph=q_sph, w_sph=w_sph, q_rev=q_rev, w_rev=w_rev)
+
+
+def apply_joint_torques(tree: KinematicTree, motor_torques: List[torch.Tensor]) -> torch.Tensor:
+    """Scatter per-motor torques (B, dof_count) in tree.motor_* order into
+    (B, ndof) (dynamics.py:344)."""
+    B = motor_torques[0].shape[0]
+    tau = torch.zeros(B, tree.ndof, device=motor_torques[0].device)
+    for m, b in enumerate(tree.motor_bodies):
+        di = int(tree.dof_offset[b])
+        tau[:, di:di + int(tree.dof_count[b])] = motor_torques[m]
+    return tau
 
 
 class LinkStates(NamedTuple):
