@@ -4,9 +4,11 @@ The package mirrors the module paths of the JAX package: every module here
 names the JAX function it replaces and is held against it in
 ``tests/test_torch_*.py``. Plain tensor code is PyTorch; the kernels are
 hand-written CUDA (``csrc/``, built and loaded by ``ops/_build.py``): the
-30 Hz control-step "megastep" of the acting path (``ops/megastep.py``), and
-the substep's linear algebra (``ops/substep_lin.py``) and the SPD inverse
-(``ops/linalg.py``) of the per-substep path.
+30 Hz control-step "megastep" of the acting and training paths
+(``ops/megastep.py``, with its ``emit_links`` variant), and the substep's
+linear algebra (``ops/substep_lin.py``) and the SPD inverse
+(``ops/linalg.py``) of the per-substep path. ``python -m pfpn_torch ...
+--train`` trains DPPO + PFPN (``harness/``, ``algos/ppo.py``).
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 asking for CUDA without a card raises (:func:`resolve_device`).

@@ -1,36 +1,269 @@
-"""PPO, acting side: deterministic evaluation of a policy.
+"""Clip-PPO (DPPO): rollout, update, training round and evaluation.
 
-Counterpart of ``_clip_action`` and ``evaluate`` in
-``pfpn_tpu/algos/ppo.py`` (:135-140, :312-332): reset a batch of episodes,
-let the policy act deterministically and step the batch, summing each
-episode's reward and frames until it is done. ``rollout``, ``update`` and
-``train_round`` come with the training slice.
+Counterpart of ``pfpn_tpu/algos/ppo.py`` (``:47-332``). The JAX package
+fuses a round into one jitted program; here it runs eagerly: a Python loop
+of ``unroll_length`` env steps on the batch of ``num_envs`` envs (the
+physics is the CUDA megastep on the card), then GAE and the minibatch
+updates. Parameters and the observation normalizer live in the
+:class:`~pfpn_torch.networks.actor_critic.ActorCritic` module and are
+updated in place; one ``torch.Generator`` carried in :class:`PPOState`
+takes the place of ``PPOState.key``.
+
+Semantics, as in the JAX package:
+
+* rollout stores the *unclipped* sampled action and its log-prob; the env
+  receives the action clipped to its bounds;
+* GAE bootstraps 0 on true terminals and V(next pre-reset state) on
+  truncation and unroll boundaries;
+* advantages are normalized per minibatch when configured; the value
+  target is old value + raw advantage;
+* clip by the global norm, then Adam (b1 0.9, b2 0.999, eps 1e-8 outside
+  the square root); one group over all parameters when the actor and
+  critic learning rates agree, a group each otherwise (``ppo.py:88-100``);
+* observation-normalizer updates use the first epoch's minibatches only,
+  with the (1 + s) / (10 + s) decay at the new optimizer step;
+* PFPN activation accumulators update on every sampling forward pass;
+  resampling runs on the optimizer-step counter.
+
+Counters (``global_step``, ``total_samples``) are Python ints.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+import dataclasses
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from ..networks.actor_critic import ActorCritic
+from ..networks.heads import update_activation_stats
+from ..networks.resample import maybe_resample
 from ..sim.dynamics import const
+from .gae import gae
+
+TRAJ_KEYS = ("obs", "action", "log_prob", "value", "reward", "next_value",
+             "terminated", "done")
+
+
+@dataclasses.dataclass(frozen=True)
+class PPOConfig:
+    num_envs: int = 8                  # reference: 8 DPPO workers
+    unroll_length: int = 512
+    minibatch_size: int = 256          # = reference batch 32 x 8 workers
+    opt_epochs: int = 1
+    epsilon: float = 0.2
+    lr_actor: float = 1e-4
+    lr_critic: float = 1e-4
+    norm_clip: Optional[float] = 1.0
+
+
+@torch.no_grad()
+def clip_by_global_norm_(grads: Sequence[torch.Tensor], max_norm: float) -> None:
+    """optax.clip_by_global_norm in place: every gradient becomes
+    g / |g| * max_norm when the global norm |g| is at least max_norm (on
+    the device: no host sync)."""
+    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    keep = norm < max_norm
+    for g in grads:
+        g.copy_(torch.where(keep, g, g / norm * max_norm))
+
+
+class ClippedAdam:
+    """Per clip group: the global-norm clip, then Adam."""
+
+    def __init__(self, groups: Sequence[Sequence[torch.nn.Parameter]],
+                 lrs: Sequence[float], max_norm: Optional[float]):
+        self.groups = [list(g) for g in groups]
+        self.max_norm = max_norm
+        self.adam = torch.optim.Adam(
+            [{"params": g, "lr": lr} for g, lr in zip(self.groups, lrs)],
+            betas=(0.9, 0.999), eps=1e-8)
+
+    def zero_grad(self) -> None:
+        self.adam.zero_grad(set_to_none=True)
+
+    @torch.no_grad()
+    def step(self) -> None:
+        if self.max_norm:
+            for group in self.groups:
+                clip_by_global_norm_([p.grad for p in group if p.grad is not None],
+                                     self.max_norm)
+        self.adam.step()
+
+    def state_dict(self) -> dict:
+        return self.adam.state_dict()
+
+    def load_state_dict(self, sd: dict) -> None:
+        self.adam.load_state_dict(sd)
+
+
+def make_optimizer(cfg: PPOConfig, net: ActorCritic) -> ClippedAdam:
+    """``ppo.py:88``: the critic's parameters are one group and everything
+    else the actor's; one clip and one Adam over both when the learning
+    rates agree, as in the preset."""
+    actor, critic = [], []
+    for name, p in net.named_parameters():
+        (critic if name.split(".")[0] == "critic" else actor).append(p)
+    if cfg.lr_actor == cfg.lr_critic:
+        return ClippedAdam([actor + critic], [cfg.lr_actor], cfg.norm_clip)
+    return ClippedAdam([actor, critic], [cfg.lr_actor, cfg.lr_critic], cfg.norm_clip)
+
+
+@dataclasses.dataclass
+class PPOState:
+    """Everything a training run carries from round to round. ``net`` and
+    ``opt`` are the algorithm's own module and optimizer, updated in place."""
+
+    net: ActorCritic                   # parameters and observation normalizer
+    opt: ClippedAdam                   # Adam moments and step counts
+    head_stats: Dict                   # PFPN activation accumulators
+    env_state: Any
+    obs: torch.Tensor
+    generator: torch.Generator         # every random draw of the run
+    global_step: int = 0               # optimizer steps
+    total_samples: int = 0
+    ep_return: Optional[torch.Tensor] = None       # (B,) running return
+    last_ep_return: Optional[torch.Tensor] = None  # (B,) last finished episode
+
+    def replace(self, **kw) -> "PPOState":
+        return dataclasses.replace(self, **kw)
 
 
 class PPO:
-    def __init__(self, env, net):
+    """Binds (env, ActorCritic, PPOConfig) and the optimizer."""
+
+    def __init__(self, env, net: ActorCritic, cfg: PPOConfig = PPOConfig()):
         self.env = env
         self.net = net
+        self.cfg = cfg
+        self.opt = make_optimizer(cfg, net)
 
+    # -- init ------------------------------------------------------------
+    def init_state(self, generator: torch.Generator) -> PPOState:
+        """Initialize the parameters and reset ``num_envs`` envs, all from
+        ``generator`` (ppo.py:112)."""
+        self.net.init_parameters(generator)
+        env_state, obs = self.env.reset_batch(self.cfg.num_envs, generator)
+        zeros = torch.zeros(self.cfg.num_envs, device=obs.device)
+        return PPOState(net=self.net, opt=self.opt, head_stats=self.net.init_stats(),
+                        env_state=env_state, obs=obs, generator=generator,
+                        ep_return=zeros, last_ep_return=zeros.clone())
+
+    # -- rollout ---------------------------------------------------------
     def _clip_action(self, a: torch.Tensor) -> torch.Tensor:
         return torch.clamp(a, const(self.env.action_low, a),
                            const(self.env.action_high, a))
 
     @torch.no_grad()
+    def rollout(self, state: PPOState) -> Tuple[PPOState, Dict[str, torch.Tensor]]:
+        """``unroll_length`` sampled steps of every env (ppo.py:142):
+        returns the state after them and the time-major trajectory."""
+        net, env, cfg = self.net, self.env, self.cfg
+        env_state, obs, stats = state.env_state, state.obs, state.head_stats
+        ep_ret, last_ret = state.ep_return, state.last_ep_return
+        steps: Dict[str, List[torch.Tensor]] = {k: [] for k in TRAJ_KEYS}
+        for _ in range(cfg.unroll_length):
+            a, lp, v, aux = net.act(obs, state.generator)
+            stats = update_activation_stats(stats, aux["probs"])
+            env_state, next_obs, res = env.step_autoreset(
+                env_state, self._clip_action(a), state.generator)
+            v_next = net.value(res.obs)            # the pre-reset observation
+            ep_ret = ep_ret + res.reward
+            last_ret = torch.where(res.done, ep_ret, last_ret)
+            ep_ret = torch.where(res.done, torch.zeros_like(ep_ret), ep_ret)
+            for k, x in zip(TRAJ_KEYS, (obs, a, lp, v, res.reward, v_next,
+                                        res.terminated, res.done)):
+                steps[k].append(x)
+            obs = next_obs
+        traj = {k: torch.stack(v) for k, v in steps.items()}
+        state = state.replace(
+            env_state=env_state, obs=obs, head_stats=stats, ep_return=ep_ret,
+            last_ep_return=last_ret,
+            total_samples=state.total_samples + cfg.unroll_length * cfg.num_envs)
+        return state, traj
+
+    # -- losses ----------------------------------------------------------
+    def _loss(self, batch: Dict[str, torch.Tensor]):
+        """(loss, metrics) of a minibatch (ppo.py:193)."""
+        net, cfg, ncfg = self.net, self.cfg, self.net.cfg
+        lp = net.log_prob(batch["obs"], batch["action"])
+        ratio = torch.exp(lp - batch["log_prob"])
+        adv = batch["advantage"]
+        if ncfg.normalize_advantage:
+            adv = (adv - torch.mean(adv)) / (torch.std(adv, correction=0) + 1e-8)
+        if ncfg.clip_advantage:
+            adv = torch.clamp(adv, -ncfg.clip_advantage, ncfg.clip_advantage)
+        adv = adv.detach()
+        surr = ratio * adv
+        clipped = torch.clamp(ratio, 1.0 - cfg.epsilon, 1.0 + cfg.epsilon) * adv
+        policy_loss = -torch.mean(torch.minimum(surr, clipped))
+
+        v_target = (batch["value"] + batch["advantage"]).detach()
+        value_loss = torch.mean((net.value(batch["obs"]) - v_target) ** 2)
+
+        entropy = torch.zeros((), device=lp.device)
+        if ncfg.entropy_beta:
+            entropy = torch.mean(net.entropy(batch["obs"]))
+            policy_loss = policy_loss - ncfg.entropy_beta * entropy
+        loss = policy_loss + ncfg.value_loss_coef * value_loss
+        metrics = {"policy_loss": policy_loss.detach(),
+                   "value_loss": value_loss.detach(), "entropy": entropy.detach()}
+        return loss, metrics
+
+    # -- update ----------------------------------------------------------
+    def update(self, state: PPOState, traj: Dict[str, torch.Tensor]):
+        """GAE, then ``opt_epochs`` passes of shuffled minibatches
+        (ppo.py:232). Returns (state, metrics averaged over the
+        minibatches, as device scalars)."""
+        net, cfg, ncfg = self.net, self.cfg, self.net.cfg
+        adv = gae(traj["reward"], traj["value"], traj["next_value"],
+                  traj["terminated"], traj["done"], ncfg.gamma, ncfg.lambd)
+        flat = {k: traj[k].reshape((-1,) + traj[k].shape[2:])
+                for k in ("obs", "action", "log_prob", "value")}
+        flat["advantage"] = adv.reshape(-1)
+        n = flat["advantage"].shape[0]
+        mb = cfg.minibatch_size
+        gstep, stats = state.global_step, state.head_stats
+        per_mb = []
+        for epoch in range(cfg.opt_epochs):
+            perm = torch.randperm(n, generator=state.generator, device=adv.device)
+            for i in range(n // mb):
+                idx = perm[i * mb:(i + 1) * mb]
+                batch = {k: v[idx] for k, v in flat.items()}
+                self.opt.zero_grad()
+                loss, metrics = self._loss(batch)
+                loss.backward()
+                self.opt.step()
+                gstep += 1
+                if ncfg.normalize_state and epoch == 0:
+                    # first epoch only (sync_model.py:103-149)
+                    net.norm.update_moving_average(batch["obs"], gstep)
+                if ncfg.head.resample:
+                    stats = maybe_resample(ncfg.head, net.head, stats, state.generator)
+                metrics["loss"] = loss.detach()
+                per_mb.append(metrics)
+        metrics = {k: torch.stack([m[k] for m in per_mb]).mean() for k in per_mb[0]}
+        return state.replace(head_stats=stats, global_step=gstep), metrics
+
+    # -- one full round ----------------------------------------------------
+    def train_round(self, state: PPOState):
+        """rollout + update (ppo.py:300). Metrics are Python numbers; the
+        counters stay ints."""
+        state, traj = self.rollout(state)
+        state, metrics = self.update(state, traj)
+        metrics["episode_reward"] = torch.mean(state.last_ep_return)
+        out: Dict[str, Any] = {k: float(v) for k, v in metrics.items()}
+        out["total_samples"] = state.total_samples
+        out["global_step"] = state.global_step
+        return state, out
+
+    # -- deterministic evaluation --------------------------------------------
+    @torch.no_grad()
     def evaluate(self, num_episodes: int = 10, max_steps: int = 600,
                  generator: Optional[torch.Generator] = None) -> dict:
-        """Deterministic episodes; stops early once every episode is done
-        (later steps would add nothing). Returns per-episode ``reward``,
-        ``frames`` and ``finished``."""
+        """Deterministic episodes (ppo.py:312); stops early once every
+        episode is done (later steps would add nothing). Returns per-episode
+        ``reward``, ``frames`` and ``finished``."""
         env = self.env
         state, obs = env.reset_batch(num_episodes, generator)
         ret = torch.zeros(num_episodes, device=obs.device)

@@ -3,7 +3,9 @@
 // substeps of a batch of environments, in one launch.
 //
 // Replaces the TPU kernel pfpn_tpu/ops/megastep.py:_make_kernel (inner
-// `kernel`, :406), launched by megastep_pallas (:1157). Per substep it runs
+// `kernel`, :406), launched by megastep_pallas (:1157), in both of its
+// variants: the default one, and emit_links (:994-1077), which also writes
+// the final link states (link_epilogue below). Per substep it runs
 // the TPU kernel's stages in its order: FK; velocity rows and Jacobian
 // columns; per-body inertias; H over the static ancestor-pair sparsity; C
 // by the fixed-frame bias recursion; SPD errors -> f; two unpivoted in-place
@@ -57,8 +59,10 @@
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 #define MS_HD __host__ __device__ __forceinline__
+#define MS_HD_CALL __host__ __device__ __noinline__
 #else
 #define MS_HD inline
+#define MS_HD_CALL
 #endif
 
 #define MS_MAXB 16     // bodies
@@ -68,6 +72,8 @@
 #define MS_MAXL 8      // joint-limit rows
 #define MS_MAXS 12     // spherical joints
 #define MS_MAXR 8      // revolute joints
+#define MS_MAXLK 16    // URDF links (the emit_links output)
+#define MS_LINK_ROWS 20
 #define MS_MAXROWS (3 * MS_MAXK + MS_MAXL)
 #define MS_MAXST (13 + 7 * MS_MAXS + 2 * MS_MAXR)
 
@@ -118,6 +124,13 @@ struct MegaTables {
   float cand_tie[MS_MAXC];      // (c + 1) * 1e-7
   float lim_val[MS_MAXL];
   float lim_sign[MS_MAXL];
+  // URDF links, read only by the emit_links epilogue
+  int n_links;
+  int link_body[MS_MAXLK];
+  float link_pos[MS_MAXLK][3];
+  float link_quat[MS_MAXLK][4];
+  float link_ipos[MS_MAXLK][3];
+  float link_iquat[MS_MAXLK][4];
 };
 
 // ---- small algebra -------------------------------------------------------
@@ -202,11 +215,10 @@ MS_HD static void crf6(const float* v, const float* f, float* o) {
 }
 
 // FK over the static tree from the base pose (q0, p0): every body's
-// position p and rotation matrix R
-MS_HD static void fk_pass(const MegaTables& T, const float* q_sph,
-                          const float* q_rev, const float* q0, const float* p0,
-                          float (*p)[3], float (*R)[9]) {
-  float q[MS_MAXB][4];
+// quaternion q, position p and rotation matrix R
+MS_HD static void fk_pass_q(const MegaTables& T, const float* q_sph,
+                            const float* q_rev, const float* q0, const float* p0,
+                            float (*q)[4], float (*p)[3], float (*R)[9]) {
   for (int i = 0; i < 4; ++i) q[0][i] = q0[i];
   for (int i = 0; i < 3; ++i) p[0][i] = p0[i];
   q2R(q[0], R[0]);
@@ -230,6 +242,13 @@ MS_HD static void fk_pass(const MegaTables& T, const float* q_sph,
     Rv(R[par], T.joint_pos[b], off);
     for (int i = 0; i < 3; ++i) p[b][i] = p[par][i] + off[i];
   }
+}
+
+MS_HD static void fk_pass(const MegaTables& T, const float* q_sph,
+                          const float* q_rev, const float* q0, const float* p0,
+                          float (*p)[3], float (*R)[9]) {
+  float q[MS_MAXB][4];
+  fk_pass_q(T, q_sph, q_rev, q0, p0, q, p, R);
 }
 
 // J += m (|r|^2 1 - r r^T): the parallel-axis term of a mass m at r
@@ -332,12 +351,98 @@ static size_t ws_floats(const MegaTables& T) {
   return 3 * n * n + 3 * (size_t)T.K * n + n * R;
 }
 
+// ---- the emit_links epilogue -------------------------------------------------
+
+// Final link states of the post-integration state `st`, the TPU kernel's
+// emit_links output (ops/megastep.py:994-1077; sim/dynamics.py:link_states
+// semantics). The substep loop's FK is of the pre-step state, so this runs
+// one more FK and a spatial-velocity pass about the world origin,
+// vhat_b = vhat_parent + sum_d [a_w; p_b x a_w] v_d ([0; a_w] v_d for a
+// slide), from the base's (w; v + p x w). Then per link: frame and
+// centre-of-mass pose, and the velocity of the centre of mass. Writes
+// MS_LINK_ROWS rows per link in LinkStates field order: frame_pos(3),
+// frame_quat(4), com_pos(3), com_quat(4), lin_vel(3), ang_vel(3).
+// Called, not inlined: inlined into the body, it changed how ptxas
+// compiled the substep loop (144 registers instead of 142) and the variant
+// took 630 ms against the default's 561 ms at B = 8192 on an H100; called,
+// the loop keeps the default's 142 registers and its time, and the
+// epilogue gets a frame of its own (14,224 bytes of stack in all).
+MS_HD_CALL static void link_epilogue(const MegaTables& T, const float* st,
+                                     float* links_out) {
+  const int S = T.n_sph, NR = T.n_rev;
+  const float* base_quat = st;
+  const float* base_pos = st + 4;
+  const float* base_ang = st + 7;
+  const float* base_lin = st + 10;
+  const float* q_sph = st + 13;
+  const float* w_sph = st + 13 + 4 * S;
+  const float* q_rev = st + 13 + 7 * S;
+  const float* w_rev = st + 13 + 7 * S + NR;
+
+  float qw[MS_MAXB][4], pw[MS_MAXB][3], Rw[MS_MAXB][9];
+  fk_pass_q(T, q_sph, q_rev, base_quat, base_pos, qw, pw, Rw);
+
+  float vhat[MS_MAXB][6];
+  {
+    float pxw[3];
+    cross3(base_pos, base_ang, pxw);
+    for (int i = 0; i < 3; ++i) {
+      vhat[0][i] = base_ang[i];
+      vhat[0][3 + i] = base_lin[i] + pxw[i];
+    }
+  }
+  for (int t = 0; t < T.nb - 1; ++t) {
+    const int b = T.topo[t], p = T.parent[b];
+    const int d = T.dof_offset[b];
+    float add[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+    for (int c = 0; c < T.dof_count[b]; ++c) {
+      const float vd = T.jtype[b] == 1 ? w_sph[3 * T.sph_index[b] + c]
+                                       : w_rev[T.rev_index[b]];
+      float aw[3];
+      Rv(Rw[b], T.dof_axis[d + c], aw);
+      if (T.dof_is_linear[d + c]) {
+        for (int i = 0; i < 3; ++i) add[3 + i] += aw[i] * vd;
+      } else {
+        float pxa[3];
+        cross3(pw[b], aw, pxa);
+        for (int i = 0; i < 3; ++i) {
+          add[i] += aw[i] * vd;
+          add[3 + i] += pxa[i] * vd;
+        }
+      }
+    }
+    for (int r = 0; r < 6; ++r) vhat[b][r] = vhat[p][r] + add[r];
+  }
+
+  for (int l = 0; l < T.n_links; ++l) {
+    const int b = T.link_body[l];
+    float* o = links_out + MS_LINK_ROWS * l;
+    float off[3], Rf[9], ioff[3], wxc[3];
+    Rv(Rw[b], T.link_pos[l], off);
+    for (int i = 0; i < 3; ++i) o[i] = pw[b][i] + off[i];          // frame_pos
+    qmul(qw[b], T.link_quat[l], o + 3);                             // frame_quat
+    q2R(o + 3, Rf);
+    Rv(Rf, T.link_ipos[l], ioff);
+    for (int i = 0; i < 3; ++i) o[7 + i] = o[i] + ioff[i];          // com_pos
+    qmul(o + 3, T.link_iquat[l], o + 10);                           // com_quat
+    cross3(vhat[b], o + 7, wxc);
+    for (int i = 0; i < 3; ++i) {
+      o[14 + i] = vhat[b][3 + i] + wxc[i];                          // lin_vel
+      o[17 + i] = vhat[b][i];                                       // ang_vel
+    }
+  }
+}
+
 // ---- one env, `substeps` substeps ------------------------------------------
 
+// EMIT_LINKS selects the variant at compile time, so the default variant
+// (false) compiles to the same code as before the epilogue existed.
+template <bool EMIT_LINKS>
 MS_HD static void megastep_env(const MegaTables& T, const float* st_in,
                                const float* tgt_sph_in, const float* tgt_rev_in,
                                float* st_out, float* act_out, float* hist_out,
-                               const Workspace& ws, int substeps) {
+                               float* links_out, const Workspace& ws,
+                               int substeps) {
   const int n = T.ndof, nb = T.nb, K = T.K, K3 = 3 * T.K;
   const int R = K3 + T.n_lim;
   const int S = T.n_sph, NR = T.n_rev;
@@ -810,12 +915,14 @@ MS_HD static void megastep_env(const MegaTables& T, const float* st_in,
   }
   for (int i = 0; i < rows_state; ++i) st_out[i] = st[i];
   for (int c = 0; c < T.n_cand; ++c) act_out[c] = act_all[c];
+  if constexpr (EMIT_LINKS) link_epilogue(T, st, links_out);
 }
 
 // ---- entry points -----------------------------------------------------------
 
 #ifdef __CUDACC__
 
+template <bool EMIT_LINKS>
 __global__ void megastep_kernel(const MegaTables* __restrict__ tables,
                                 const float* __restrict__ st,
                                 const float* __restrict__ tgt_sph,
@@ -823,6 +930,7 @@ __global__ void megastep_kernel(const MegaTables* __restrict__ tables,
                                 float* __restrict__ st_out,
                                 float* __restrict__ act_out,
                                 float* __restrict__ hist_out,
+                                float* __restrict__ links_out,
                                 float* __restrict__ ws, int B, int substeps) {
   __shared__ MegaTables T;
   {
@@ -836,42 +944,62 @@ __global__ void megastep_kernel(const MegaTables* __restrict__ tables,
   if (env >= B) return;
   const int rs = 13 + 7 * T.n_sph + 2 * T.n_rev;
   Workspace w{ws, (size_t)B, (size_t)env};
-  megastep_env(T, st + (size_t)env * rs, tgt_sph + (size_t)env * 4 * T.n_sph,
-               tgt_rev + (size_t)env * T.n_rev, st_out + (size_t)env * rs,
-               act_out + (size_t)env * T.n_cand,
-               hist_out + (size_t)env * 3 * substeps, w, substeps);
+  float* links = nullptr;
+  if constexpr (EMIT_LINKS) links = links_out + (size_t)env * MS_LINK_ROWS * T.n_links;
+  megastep_env<EMIT_LINKS>(
+      T, st + (size_t)env * rs, tgt_sph + (size_t)env * 4 * T.n_sph,
+      tgt_rev + (size_t)env * T.n_rev, st_out + (size_t)env * rs,
+      act_out + (size_t)env * T.n_cand, hist_out + (size_t)env * 3 * substeps,
+      links, w, substeps);
 }
 
-// Launch on `stream`; returns cudaGetLastError() (0 = launched).
+// Launch on `stream`: the emit_links variant when links_out is not null,
+// else the default one. Returns cudaGetLastError() (0 = launched).
 extern "C" int pfpn_megastep_launch(const void* tables, const float* st,
                                     const float* tgt_sph, const float* tgt_rev,
                                     float* st_out, float* act_out,
-                                    float* hist_out, float* ws, int B,
-                                    int substeps, void* stream) {
+                                    float* hist_out, float* links_out,
+                                    float* ws, int B, int substeps,
+                                    void* stream) {
   const int threads = 64;
   const int blocks = (B + threads - 1) / threads;
-  megastep_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const MegaTables*)tables, st, tgt_sph, tgt_rev, st_out, act_out,
-      hist_out, ws, B, substeps);
+  if (links_out) {
+    megastep_kernel<true><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+        (const MegaTables*)tables, st, tgt_sph, tgt_rev, st_out, act_out,
+        hist_out, links_out, ws, B, substeps);
+  } else {
+    megastep_kernel<false><<<blocks, threads, 0, (cudaStream_t)stream>>>(
+        (const MegaTables*)tables, st, tgt_sph, tgt_rev, st_out, act_out,
+        hist_out, nullptr, ws, B, substeps);
+  }
   return (int)cudaGetLastError();
 }
 
 #else
 
-// Host build of the same per-env body (g++ -x c++), for the CPU tests.
+// Host build of the same per-env body (g++ -x c++), for the CPU tests; the
+// emit_links variant when links_out is not null.
 extern "C" int pfpn_megastep_host(const void* tables, const float* st,
                                   const float* tgt_sph, const float* tgt_rev,
                                   float* st_out, float* act_out,
-                                  float* hist_out, float* ws, int B,
-                                  int substeps) {
+                                  float* hist_out, float* links_out, float* ws,
+                                  int B, int substeps) {
   const MegaTables& T = *(const MegaTables*)tables;
   const int rs = 13 + 7 * T.n_sph + 2 * T.n_rev;
   for (int env = 0; env < B; ++env) {
     Workspace w{ws, (size_t)B, (size_t)env};
-    megastep_env(T, st + (size_t)env * rs, tgt_sph + (size_t)env * 4 * T.n_sph,
-                 tgt_rev + (size_t)env * T.n_rev, st_out + (size_t)env * rs,
-                 act_out + (size_t)env * T.n_cand,
-                 hist_out + (size_t)env * 3 * substeps, w, substeps);
+    const float* s = st + (size_t)env * rs;
+    const float* ts = tgt_sph + (size_t)env * 4 * T.n_sph;
+    const float* tr = tgt_rev + (size_t)env * T.n_rev;
+    float* so = st_out + (size_t)env * rs;
+    float* ao = act_out + (size_t)env * T.n_cand;
+    float* ho = hist_out + (size_t)env * 3 * substeps;
+    if (links_out)
+      megastep_env<true>(T, s, ts, tr, so, ao, ho,
+                         links_out + (size_t)env * MS_LINK_ROWS * T.n_links, w,
+                         substeps);
+    else
+      megastep_env<false>(T, s, ts, tr, so, ao, ho, nullptr, w, substeps);
   }
   return 0;
 }

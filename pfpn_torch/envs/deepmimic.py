@@ -4,7 +4,9 @@ Counterpart of ``pfpn_tpu/envs/deepmimic.py``: :func:`make` (Walk), the
 action tables and ``_action_to_targets`` of the three control modes (SPD,
 torque, position), ``reset`` with reference-state initialization and the
 ground-penetration lift, ``step`` (through :meth:`Engine.control_step_full`,
-the CUDA megastep on the card, with the closed-form phase-wrap re-sync; or,
+the CUDA megastep on the card, with the closed-form phase-wrap re-sync, or
+:meth:`Engine.control_step_links` when the engine has the megastep's
+``emit_links`` variant, whose link states replace the fk epilogue; or,
 with the megastep off or another control mode, a loop of
 :meth:`Engine.substep` with the per-substep re-sync), the torque-log
 channel (``step_log``, ``torque_log``), the 197-dim observation, the
@@ -296,7 +298,14 @@ class DeepMimicEnv:
             return self._finish(state, sim, elapsed, off, last_contact)
 
         duration = self.motion.duration
-        sim, active, hist = self.engine.control_step_full(state.sim, t_sph, t_rev)
+        ls = None
+        if self.engine.mega_links is not None:
+            # the kernel also emits the final link states, which replace the
+            # fk + link_states epilogue of _finish (deepmimic.py:331-336)
+            sim, active, hist, ls = self.engine.control_step_links(
+                state.sim, t_sph, t_rev)
+        else:
+            sim, active, hist = self.engine.control_step_full(state.sim, t_sph, t_rev)
         last_contact = self.engine.link_contact_from_active(active)
 
         # phase-wrap re-sync (deepmimic.py:340-352): the wrap happens at most
@@ -313,7 +322,7 @@ class DeepMimicEnv:
         rows = torch.arange(hist.shape[0], device=hist.device)
         new_off = sync_position_offset(self.motion, e_star, hist[rows, s_star], UP)
         off = torch.where(wrapped_any[:, None], new_off, state.ref_pos_offset)
-        return self._finish(state, sim, elapsed, off, last_contact)
+        return self._finish(state, sim, elapsed, off, last_contact, ls)
 
     def _substep_loop(self, state: EnvState, t_sph, t_rev, torques,
                       return_torque: bool):
@@ -339,8 +348,9 @@ class DeepMimicEnv:
         return sim, elapsed, off, link_contact, (torch.stack(taus, 1) if taus else None)
 
     def _finish(self, state: EnvState, sim: SimState, elapsed, off,
-                last_contact) -> StepResult:
-        """Termination, reward and observation after a control step."""
+                last_contact, ls: Optional[LinkStates] = None) -> StepResult:
+        """Termination, reward and observation after a control step; the
+        link states of ``sim`` are computed here unless given."""
         state = EnvState(sim=sim, elapsed_time=elapsed,
                          init_time=state.init_time, ref_pos_offset=off)
         if self.has_termination:
@@ -349,7 +359,8 @@ class DeepMimicEnv:
         else:
             terminated = torch.zeros_like(elapsed, dtype=torch.bool)
 
-        ls = link_states(self.tree, fk(self.tree, sim))
+        if ls is None:
+            ls = link_states(self.tree, fk(self.tree, sim))
         reward = self.reward(state, terminated, ls=ls)
         truncated = ~terminated & (elapsed >= self.overtime + state.init_time)
         done = terminated | truncated

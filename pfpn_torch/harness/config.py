@@ -1,8 +1,9 @@
 """Declarative run configuration.
 
 A copy of ``pfpn_tpu/harness/config.py`` (pure Python): the algorithm x
-policy-head x env settings as frozen dataclasses, and the DPPO-PFPN
-resample-interval rule.
+policy-head x env settings as frozen dataclasses, the derived env count,
+minibatch size and run directories, and the DPPO-PFPN resample-interval
+rule.
 """
 
 from __future__ import annotations
@@ -66,6 +67,30 @@ class RunConfig:
     save_checkpoint_interval: int = 1000
     suffix: str = ""
     env_multiplier: int = 1
+
+    @property
+    def num_envs(self) -> int:
+        return self.workers * self.env_multiplier
+
+    @property
+    def minibatch_size(self) -> int:
+        """The reference aggregates ``workers`` gradients of ``batch_size``
+        samples each: one minibatch of workers x batch (config.py:86)."""
+        return self.worker.batch_size * self.workers * self.env_multiplier
+
+    def _dir_suffix(self) -> str:
+        suffix = ""
+        if self.head.kind in ("particle", "discrete") and self.head.particles:
+            suffix = f"_particle{self.head.particles}"
+        if self.suffix:
+            suffix += f"_{self.suffix}"
+        return suffix
+
+    def checkpoint_dir(self, root: str = ".") -> str:
+        return f"{root}/ckpt_{self.env}/{self.name}{self._dir_suffix()}/{self.seed}"
+
+    def log_dir(self, root: str = ".") -> str:
+        return f"{root}/log_{self.env}/{self.name}{self._dir_suffix()}/{self.seed}"
 
 
 def dppo_pfpn_resample_interval(worker: WorkerSettings, soft: bool = False) -> int:

@@ -1,12 +1,16 @@
-"""Actor-critic network, acting side, as an ``nn.Module``.
+"""Actor-critic network as an ``nn.Module``.
 
 Counterpart of ``pfpn_tpu/networks/actor_critic.py``: clipped state
 normalizer -> optional shared trunk -> actor MLP (relu6 after every layer)
-+ particle head; critic MLP -> value. This slice ports
-:meth:`ActorCritic.act_deterministic` and :meth:`ActorCritic.value`
-(``actor_critic.py:149``, :164) and :func:`load_jax_params`, which carries
-the JAX package's weights across. Sampling, log-prob, entropy and value
-normalization come with the training slice.
++ particle head; critic MLP -> value. The module holds the trainable
+parameters and the normalizer's buffers; :class:`ACConfig` carries the loss
+settings PPO reads. Ported: initialization (:meth:`ActorCritic.init_parameters`,
+``actor_critic.py:81``), :meth:`~ActorCritic.init_stats`, the policy API
+(``act``, ``act_deterministic``, ``log_prob``, ``entropy``, ``value``,
+``:149-178``) and :func:`load_jax_params`, which carries the JAX package's
+weights across. Value normalization (``value_norm.py``,
+``_clip_with_gradient``) is off in every shipped preset and comes later;
+``harness/build.py`` refuses it.
 """
 
 from __future__ import annotations
@@ -19,7 +23,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from .heads import ParticleHead, ParticleHeadModule
+from .heads import ParticleHead, ParticleHeadModule, init_activation_stats
 from .mlp import MLP
 from .normalizer import Normalizer
 
@@ -33,6 +37,14 @@ class ACConfig:
     critic_shape: Tuple[int, ...] = (1024, 512)
     normalize_state: bool = True
     clip_state: Optional[float] = 5.0
+    # loss coefficients (actor_critic.py:101-184)
+    value_loss_coef: float = 0.5
+    entropy_beta: Optional[float] = None
+    normalize_advantage: bool = False
+    clip_advantage: Optional[float] = None
+    # returns
+    gamma: float = 0.95
+    lambd: float = 0.95
 
 
 class ActorCritic(nn.Module):
@@ -52,6 +64,18 @@ class ActorCritic(nn.Module):
             actor_feat = cfg.actor_shape[-1]
         self.head = ParticleHeadModule(cfg.head, actor_feat)
         self.critic = MLP([feat, *cfg.critic_shape, 1])
+
+    def init_parameters(self, generator: Optional[torch.Generator]) -> None:
+        """The reference's initialization (actor_critic.py:81): every trunk
+        and the critic truncated-normal, the particle grid in the head. The
+        normalizer keeps its state."""
+        for part in (self.common, self.actor_trunk, self.head, self.critic):
+            if part is not None:
+                part.init_parameters(generator)
+
+    def init_stats(self) -> Dict:
+        """The head's resampling accumulators (actor_critic.py:110)."""
+        return init_activation_stats(self.cfg.head, self.head.particles.device)
 
     def _features(self, obs: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
@@ -75,6 +99,18 @@ class ActorCritic(nn.Module):
 
     def act_deterministic(self, obs: torch.Tensor) -> torch.Tensor:
         return self.head.deterministic_action(self.actor_features(obs))
+
+    def act(self, obs: torch.Tensor, generator: Optional[torch.Generator]):
+        """Sampled action, its log-prob, the value and aux (the rollout
+        path, actor_critic.py:159)."""
+        a, lp, aux = self.head.sample_with_log_prob(self.actor_features(obs), generator)
+        return a, lp, self.value(obs), aux
+
+    def log_prob(self, obs: torch.Tensor, action: torch.Tensor) -> torch.Tensor:
+        return self.head.log_prob_of(self.actor_features(obs), action)
+
+    def entropy(self, obs: torch.Tensor) -> torch.Tensor:
+        return self.head.entropy_of(self.actor_features(obs))
 
 
 def load_jax_params(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:

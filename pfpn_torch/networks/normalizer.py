@@ -1,8 +1,11 @@
-"""Observation normalizer state, acting side.
+"""Online observation normalizer.
 
 Counterpart of ``pfpn_tpu/networks/normalizer.py``: the state (mean, std,
-count) as module buffers and the clipped normalization. The moving-average
-and Welford updates come with the training slice.
+count) as module buffers, the clipped normalization, and both updates: the
+moving average the presets use (``normalizer.py:44-53``; decay
+min(0.9999, (1 + s) / (10 + s)) with s the optimizer step) and the
+parallel Welford merge (``:56-67``). Updates write the buffers in place and
+happen at train time, outside autograd.
 """
 
 from __future__ import annotations
@@ -25,3 +28,29 @@ class Normalizer(nn.Module):
         if clip:
             y = torch.clamp(y, -clip, clip)
         return y
+
+    @torch.no_grad()
+    def update_moving_average(self, batch: torch.Tensor, global_step: int) -> None:
+        """Reference utils.py:60-68, as normalizer.py:44 computes it in fp32."""
+        s = torch.tensor(float(global_step), dtype=torch.float32, device=batch.device)
+        decay = torch.clamp((1.0 + s) / (10.0 + s), max=0.9999)
+        m = torch.mean(batch, 0)
+        v = torch.var(batch, 0, correction=0)
+        self.mean.copy_(decay * self.mean + (1.0 - decay) * m)
+        self.std.copy_(torch.clamp(decay * self.std + (1.0 - decay) * torch.sqrt(v),
+                                   min=1e-6))
+
+    @torch.no_grad()
+    def update_welford(self, batch: torch.Tensor) -> None:
+        """Reference utils.py:69-80 (parallel Welford merge)."""
+        batch_mean = torch.mean(batch, 0)
+        batch_var = torch.var(batch, 0, correction=0)
+        batch_count = torch.tensor(float(batch.shape[0]), device=batch.device)
+        delta = batch_mean - self.mean
+        new_count = self.count + batch_count
+        m_a = torch.square(self.std) * self.count
+        m_b = batch_var * batch_count
+        m2 = m_a + m_b + torch.square(delta) * self.count * batch_count / new_count
+        self.std.copy_(torch.clamp(torch.sqrt(m2 / new_count), min=1e-6))
+        self.mean.copy_(self.mean + delta * batch_count / new_count)
+        self.count.copy_(new_count)

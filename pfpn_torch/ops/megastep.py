@@ -14,7 +14,12 @@ is the wrapper:
   reference substeps (the engine's fused substep over the batched
   ``ops/substep_lin.py`` math), as ``make_megastep._primal`` does.
 
-There is no fallback from one to the other.
+There is no fallback from one to the other. A :class:`Megastep` built with a
+``link_state_fn`` is the TPU kernel's ``emit_links`` variant: the kernel
+also writes the final link states (the epilogue of ``megastep.py:994-1077``,
+a compile-time branch of the same source), and the plain version takes them
+from ``link_state_fn``. Each instance counts its own launches, so the two
+variants are counted apart.
 """
 
 from __future__ import annotations
@@ -32,7 +37,10 @@ F3 = Tuple[float, float, float]
 F4 = Tuple[float, float, float, float]
 
 # capacities of the static tables (MS_MAX* in csrc/megastep.cu)
-MAXB, MAXD, MAXC, MAXK, MAXL, MAXS, MAXR = 16, 40, 48, 16, 8, 12, 8
+MAXB, MAXD, MAXC, MAXK, MAXL, MAXS, MAXR, MAXLK = 16, 40, 48, 16, 8, 12, 8, 16
+# emit_links output rows per link (MS_LINK_ROWS): frame_pos(3), frame_quat(4),
+# com_pos(3), com_quat(4), lin_vel(3), ang_vel(3), LinkStates field order
+LINK_ROWS = 20
 
 
 @dataclasses.dataclass(frozen=True)
@@ -94,6 +102,10 @@ class MegaMeta:
     @property
     def n_rows(self) -> int:
         return 3 * self.n_contacts + self.n_lim
+
+    @property
+    def n_links(self) -> int:
+        return len(self.link_body)
 
 
 def build_meta(tree, gains, contact_params, contact_set, dt, frame_skip,
@@ -251,6 +263,9 @@ class MegaTables(ctypes.Structure):
         ("cand_off", _F * (3 * MAXC)), ("cand_radius", _F * MAXC),
         ("cand_tie", _F * MAXC),
         ("lim_val", _F * MAXL), ("lim_sign", _F * MAXL),
+        ("n_links", _I), ("link_body", _I * MAXLK),
+        ("link_pos", _F * (3 * MAXLK)), ("link_quat", _F * (4 * MAXLK)),
+        ("link_ipos", _F * (3 * MAXLK)), ("link_iquat", _F * (4 * MAXLK)),
     ]
 
 
@@ -268,7 +283,8 @@ def pack_tables(meta: MegaMeta) -> MegaTables:
               "candidates": (meta.n_cand, MAXC), "contacts": (K, MAXK),
               "limit rows": (meta.n_lim, MAXL),
               "spherical joints": (meta.n_sph, MAXS),
-              "revolute joints": (meta.n_rev, MAXR)}
+              "revolute joints": (meta.n_rev, MAXR),
+              "links": (meta.n_links, MAXLK)}
     for what, (have, cap) in limits.items():
         if have > cap:
             raise ValueError(f"megastep kernel takes at most {cap} {what}, "
@@ -347,16 +363,44 @@ def pack_tables(meta: MegaMeta) -> MegaTables:
     fill("cand_tie", [(c + 1) * 1e-7 for c in range(meta.n_cand)])
     fill("lim_val", [r[2] for r in meta.lim_rows])
     fill("lim_sign", [r[3] for r in meta.lim_rows])
+    t.n_links = meta.n_links
+    fill("link_body", meta.link_body)
+    fill("link_pos", meta.link_pos)
+    fill("link_quat", meta.link_quat)
+    fill("link_ipos", meta.link_ipos)
+    fill("link_iquat", meta.link_iquat)
     return t
 
 
-def megastep_flops(meta: MegaMeta, substeps: Optional[int] = None) -> int:
+def links_to_states(meta: MegaMeta, arr: torch.Tensor):
+    """(..., LINK_ROWS * n_links) kernel rows -> sim.dynamics.LinkStates
+    (megastep.py:1293)."""
+    from ..sim.dynamics import LinkStates
+
+    a = arr.reshape(arr.shape[:-1] + (meta.n_links, LINK_ROWS))
+    return LinkStates(frame_pos=a[..., 0:3], frame_quat=a[..., 3:7],
+                      com_pos=a[..., 7:10], com_quat=a[..., 10:14],
+                      lin_vel=a[..., 14:17], ang_vel=a[..., 17:20])
+
+
+def states_to_links(ls) -> torch.Tensor:
+    """LinkStates (B, n_links, ...) -> (B, LINK_ROWS * n_links) rows, the
+    kernel's layout."""
+    rows = torch.cat([ls.frame_pos, ls.frame_quat, ls.com_pos, ls.com_quat,
+                      ls.lin_vel, ls.ang_vel], -1)
+    return rows.reshape(rows.shape[0], -1)
+
+
+def megastep_flops(meta: MegaMeta, substeps: Optional[int] = None,
+                   emit_links: bool = False) -> int:
     """fp32 operations one env's control step needs, for the kernel's bound
     (an FMA counts two; sqrt, division and the transcendentals count one).
     Most terms follow the loops of csrc/megastep.cu; the two inverses count
     as the least they need, a Cholesky factor each (n^3/3) and one solve
     each (2 n^2), where the kernel runs two full Gauss-Jordan sweeps and
-    refines each solve once. The work does not depend on the data."""
+    refines each solve once. ``emit_links`` adds the epilogue: one FK, the
+    spatial-velocity pass and each link's pose and velocity. The work does
+    not depend on the data."""
     n, K, nb, C = meta.ndof, meta.n_contacts, meta.nb, meta.n_cand
     K3, R, it, L = 3 * K, meta.n_rows, meta.iterations, meta.n_lim
     pairs = 0                                  # ancestor-or-self dof pairs
@@ -386,7 +430,25 @@ def megastep_flops(meta: MegaMeta, substeps: Optional[int] = None) -> int:
         + it * (2 * n * R + K3 * 2 * n + 11 * R)  # Jacobi sweeps
         + 2 * n * R + 2 * n                       # v* + W lam, clip
         + 80 + 60 * meta.n_sph + 6 * meta.n_rev)  # integration
-    return per_sub * (meta.frame_skip if substeps is None else substeps)
+    total = per_sub * (meta.frame_skip if substeps is None else substeps)
+    if emit_links:
+        total += ((nb - 1) * 120                  # FK
+                  + 15 + 30 * (n - 6)             # spatial velocities
+                  + meta.n_links * 130)           # link poses, velocities
+    return total
+
+
+def megastep_bytes(meta: MegaMeta, batch: int, substeps: Optional[int] = None,
+                   emit_links: bool = False) -> int:
+    """Bytes the function must move for ``batch`` envs: the state and
+    targets read once; the state, flags, base history (and the link rows)
+    written once; the static tables."""
+    substeps = meta.frame_skip if substeps is None else substeps
+    per_env = (meta.rows_state + 4 * meta.n_sph + meta.n_rev          # in
+               + meta.rows_state + meta.n_cand + 3 * substeps)        # out
+    if emit_links:
+        per_env += LINK_ROWS * meta.n_links
+    return 4 * batch * per_env + ctypes.sizeof(MegaTables)
 
 
 # ---------------------------------------------------------------------------
@@ -394,7 +456,7 @@ def megastep_flops(meta: MegaMeta, substeps: Optional[int] = None) -> int:
 # ---------------------------------------------------------------------------
 
 def _declare(lib, host: bool):
-    ptrs = [ctypes.c_void_p] * 8
+    ptrs = [ctypes.c_void_p] * 9
     if host:
         fn = lib.pfpn_megastep_host
         fn.argtypes = ptrs + [ctypes.c_int, ctypes.c_int]
@@ -424,26 +486,37 @@ class Megastep:
 
     ``reference_substep(state, t_sph, t_rev) -> (state', active_all,
     base_pos)`` is the engine's batched fused substep (the plain version's
-    body). ``launches`` counts kernel launches."""
+    body). With ``link_state_fn(state') -> LinkStates`` this is the
+    ``emit_links`` variant: every version also returns the final link
+    states, as ``make_megastep(..., link_state_fn)`` does. ``launches``
+    counts kernel launches."""
 
-    def __init__(self, meta: MegaMeta, reference_substep: Callable):
+    def __init__(self, meta: MegaMeta, reference_substep: Callable,
+                 link_state_fn: Optional[Callable] = None):
         self.meta = meta
         self.reference_substep = reference_substep
+        self.link_state_fn = link_state_fn
+        self.emit_links = link_state_fn is not None
         self.tables = pack_tables(meta)
         self._tables_dev = {}
         self.launches = 0
 
-    # -- SimState interface (Engine.control_step_full) -------------------
+    # -- SimState interface (Engine.control_step_full / control_step_links) --
     def __call__(self, state, t_sph: torch.Tensor, t_rev: torch.Tensor):
-        """(state', active (B, n_cand) bool, base_hist (B, frame_skip, 3))."""
+        """(state', active (B, n_cand) bool, base_hist (B, frame_skip, 3)),
+        and the final LinkStates for the emit_links variant."""
         B = t_sph.shape[0]
         st = pack_state(self.meta, state)
         out = self.run(st, t_sph.reshape(B, -1), t_rev)
-        return (unpack_state(self.meta, out[0], state),) + out[1:]
+        sim = unpack_state(self.meta, out[0], state)
+        if self.emit_links:
+            return sim, out[1], out[2], links_to_states(self.meta, out[3])
+        return (sim,) + out[1:]
 
     def run(self, st, tgt_sph, tgt_rev, substeps: Optional[int] = None):
         """Packed interface: st (B, rows_state), tgt_sph (B, 4 n_sph),
-        tgt_rev (B, n_rev) -> (st', active bool, hist (B, substeps, 3))."""
+        tgt_rev (B, n_rev) -> (st', active bool, hist (B, substeps, 3)),
+        plus the link rows (B, LINK_ROWS * n_links) for emit_links."""
         if st.is_cuda:
             return self.kernel(st, tgt_sph, tgt_rev, substeps)
         return self.plain(st, tgt_sph, tgt_rev, substeps)
@@ -473,9 +546,21 @@ class Megastep:
         """Per-env workspace of the kernel, as the CUDA source lays it out."""
         return int(lib.pfpn_megastep_ws_floats(ctypes.addressof(self.tables)))
 
+    def _outputs(self, B: int, substeps: int, dev):
+        m = self.meta
+        st_out = torch.empty(B, m.rows_state, device=dev)
+        act = torch.empty(B, m.n_cand, device=dev)
+        hist = torch.empty(B, substeps, 3, device=dev)
+        links = (torch.empty(B, LINK_ROWS * m.n_links, device=dev)
+                 if self.emit_links else None)
+        return st_out, act, hist, links
+
+    def _result(self, st_out, act, hist, links):
+        out = (st_out, act > 0.5, hist)
+        return out + (links,) if self.emit_links else out
+
     # -- the kernel ---------------------------------------------------------
     def kernel(self, st, tgt_sph, tgt_rev, substeps: Optional[int] = None):
-        m = self.meta
         substeps = self._check(st, tgt_sph, tgt_rev, substeps)
         if not st.is_cuda:
             raise ValueError("megastep kernel needs CUDA tensors")
@@ -490,44 +575,42 @@ class Megastep:
             tables = raw.to(dev)
             self._tables_dev[dev] = tables
         B = st.shape[0]
-        st_out = torch.empty_like(st)
-        act = torch.empty(B, m.n_cand, device=dev)
-        hist = torch.empty(B, substeps, 3, device=dev)
+        st_out, act, hist, links = self._outputs(B, substeps, dev)
         ws = torch.empty(self._ws_floats(lib) * B, device=dev)
         with torch.cuda.device(dev):     # the launch goes to the current device
             rc = lib.pfpn_megastep_launch(
                 tables.data_ptr(), st.data_ptr(), tgt_sph.data_ptr(),
                 tgt_rev.data_ptr(), st_out.data_ptr(), act.data_ptr(),
-                hist.data_ptr(), ws.data_ptr(), B, substeps,
+                hist.data_ptr(), None if links is None else links.data_ptr(),
+                ws.data_ptr(), B, substeps,
                 torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"megastep kernel launch failed: cudaError {rc}")
         self.launches += 1
-        return st_out, act > 0.5, hist
+        return self._result(st_out, act, hist, links)
 
     # -- the CUDA source's arithmetic on the host ---------------------------
     def host(self, st, tgt_sph, tgt_rev, substeps: Optional[int] = None):
         """Run csrc/megastep.cu's per-env body, built with g++, on CPU
         tensors (the CPU tests' view of the kernel's arithmetic)."""
-        m = self.meta
         substeps = self._check(st, tgt_sph, tgt_rev, substeps)
         st, tgt_sph, tgt_rev = (x.detach().cpu().contiguous()
                                 for x in (st, tgt_sph, tgt_rev))
         lib = LIBRARY.load(host=True)
         B = st.shape[0]
-        st_out = torch.empty_like(st)
-        act = torch.empty(B, m.n_cand)
-        hist = torch.empty(B, substeps, 3)
+        st_out, act, hist, links = self._outputs(B, substeps, "cpu")
         ws = torch.empty(self._ws_floats(lib) * B)
         lib.pfpn_megastep_host(
             ctypes.addressof(self.tables), st.data_ptr(), tgt_sph.data_ptr(),
             tgt_rev.data_ptr(), st_out.data_ptr(), act.data_ptr(),
-            hist.data_ptr(), ws.data_ptr(), B, substeps)
-        return st_out, act > 0.5, hist
+            hist.data_ptr(), None if links is None else links.data_ptr(),
+            ws.data_ptr(), B, substeps)
+        return self._result(st_out, act, hist, links)
 
     # -- the plain version ----------------------------------------------------
     def plain(self, st, tgt_sph, tgt_rev, substeps: Optional[int] = None):
-        """Loop of reference substeps (make_megastep._primal)."""
+        """Loop of reference substeps (make_megastep._primal), then, for
+        emit_links, ``link_state_fn`` of the final state."""
         from ..sim.types import SimState
 
         m = self.meta
@@ -540,4 +623,7 @@ class Megastep:
         for _ in range(substeps):
             state, act, base_pos = self.reference_substep(state, t_sph, tgt_rev)
             hist.append(base_pos)
-        return pack_state(m, state), act, torch.stack(hist, 1)
+        out = (pack_state(m, state), act, torch.stack(hist, 1))
+        if self.emit_links:
+            out += (states_to_links(self.link_state_fn(state)),)
+        return out

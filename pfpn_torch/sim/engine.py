@@ -18,12 +18,16 @@ JAX engine's three branches (``engine.py:138-205``):
 :meth:`Engine.control_step_full` runs the whole control step through the
 CUDA megastep (:class:`~pfpn_torch.ops.megastep.Megastep`), which exists,
 as in JAX (``engine.py:86-92``), only for fused Stable-PD with the megastep
-on.
+on. With ``EngineConfig.megastep_links``, or the JAX package's own
+``PFPN_MEGASTEP_LINKS=1`` override (``engine.py:97-104``), the engine also
+builds the megastep's ``emit_links`` variant, and
+:meth:`Engine.control_step_links` returns the final link states too.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -38,7 +42,7 @@ from ..ops.substep_lin import SubstepMeta, substep_core_reference
 from . import contact as contact_mod
 from .contact import ContactParams, ContactSet
 from .dynamics import (_mv, advance, apply_joint_torques, const, crba, fk,
-                       pack_velocity, rnea)
+                       link_states, pack_velocity, rnea)
 from .types import KinematicTree, REVOLUTE, SimState
 
 
@@ -54,6 +58,10 @@ class EngineConfig:
     fused: bool = True
     # the whole control step in one kernel (csrc/megastep.cu); fused SPD only
     megastep: bool = True
+    # also the megastep's emit_links variant, which returns the final link
+    # states (env.step then skips its fk + link_states epilogue);
+    # PFPN_MEGASTEP_LINKS=1 turns it on as well
+    megastep_links: bool = False
 
 
 class Engine:
@@ -72,6 +80,12 @@ class Engine:
                                config.dt, config.frame_skip, config.gravity)
         self.mega = (Megastep(self.meta, self._substep_fused_core_full)
                      if config.megastep and self.fused else None)
+        self.mega_links = None
+        if self.mega is not None and (config.megastep_links or os.environ.get(
+                "PFPN_MEGASTEP_LINKS", "") not in ("", "0")):
+            self.mega_links = Megastep(
+                self.meta, self._substep_fused_core_full,
+                link_state_fn=lambda st: link_states(tree, fk(tree, st)))
         lo = np.full(tree.n_rev, -np.inf)
         hi = np.full(tree.n_rev, np.inf)
         for m, b in enumerate(tree.motor_bodies):
@@ -199,6 +213,13 @@ class Engine:
         if self.mega is None:
             raise RuntimeError("megastep not enabled")
         return self.mega(state, target_sph, target_rev)
+
+    def control_step_links(self, state: SimState, target_sph, target_rev):
+        """:meth:`control_step_full` plus the final LinkStates, through the
+        megastep's emit_links variant (engine.py:258-262)."""
+        if self.mega_links is None:
+            raise RuntimeError("megastep_links not enabled")
+        return self.mega_links(state, target_sph, target_rev)
 
     def link_contact_from_active(self, active: torch.Tensor) -> torch.Tensor:
         """Per-candidate flags (B, n_cand) -> per-link flags (B, nl + 1)."""

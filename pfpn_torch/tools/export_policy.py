@@ -19,35 +19,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from .. import resolve_device
 from ..algos.ppo import PPO
-from ..envs.deepmimic import make
-from ..harness.config import RunConfig
+from ..harness.build import build_algo
 from ..harness.settings import build
-from ..networks.actor_critic import ACConfig, ActorCritic, load_jax_params
-from ..networks.heads import ParticleHead
-
-
-def build_algo(cfg: RunConfig, device=None) -> PPO:
-    """The preset's env and network in a PPO wrapper (harness/build.py of
-    the JAX package, for the PPO + particle-head case; the optimizer
-    settings come with the training slice)."""
-    net_cfg = cfg.network
-    if (cfg.algo != "ppo" or cfg.head.kind != "particle" or net_cfg.lstm
-            or net_cfg.normalize_value or net_cfg.clip_value):
-        raise NotImplementedError("only feed-forward PPO with the particle "
-                                  "head and no value normalization is ported")
-    device = resolve_device(device)
-    env = make(cfg.env, device=device)
-    head = ParticleHead(action_dim=env.action_size, particles=cfg.head.particles,
-                        fixed_sigma=cfg.head.fixed_sigma)
-    net = ActorCritic(ACConfig(
-        obs_dim=env.observation_size, head=head,
-        common_shape=net_cfg.common_shape, actor_shape=net_cfg.actor_shape,
-        critic_shape=net_cfg.critic_shape,
-        normalize_state=net_cfg.normalize_state,
-        clip_state=net_cfg.clip_state)).to(device)
-    return PPO(env, net)
+from ..networks.actor_critic import load_jax_params
 
 
 def load_policy(algo: PPO, path: str) -> None:

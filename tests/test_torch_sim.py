@@ -11,7 +11,9 @@ drop states in ground contact (``tests/test_fused.py:26-40``).
   path, under the bounds of ``tests/test_megastep.py:139-152``;
 * ``csrc/megastep.cu``'s per-env body, built for the host with g++, against
   the plain version under the same bounds (the kernel's arithmetic, without
-  a card).
+  a card); its ``emit_links`` variant, from perturbed and drop states, equal
+  to the default variant in state, flags and history, and its link rows
+  against JAX's ``link_states(fk(.))`` of the kernel's own final state.
 
 This file keeps to four tests: pytest-xdist's loadfile schedule hands out
 files with more tests first, and this slower file should not delay
@@ -32,6 +34,8 @@ from pfpn_torch.envs.deepmimic import make as t_make  # noqa: E402
 from pfpn_torch.ops import megastep as tms  # noqa: E402
 from pfpn_torch.sim.types import SimState as TSimState  # noqa: E402
 from pfpn_tpu.envs.assets import HUMANOID_KD, HUMANOID_KP, humanoid_tree  # noqa: E402
+from pfpn_torch.sim.dynamics import fk, link_states  # noqa: E402
+from pfpn_tpu.sim.dynamics import fk as j_fk, link_states as j_link_states  # noqa: E402
 from pfpn_tpu.sim.engine import Engine, EngineConfig  # noqa: E402
 from pfpn_tpu.sim.types import SimState as JSimState, zero_state  # noqa: E402
 from pfpn_tpu.control.spd import build_gains  # noqa: E402
@@ -45,6 +49,11 @@ SUB_VEL_TOL = 1e-4     # velocities (through the 34x34 inverses, cond ~ 4e4)
 STEP_TOLS = {"base_pos": 2e-4, "base_quat": 2e-4, "q_sph": 2e-4,
              "w_sph": 5e-3, "q_rev": 2e-4}
 HIST_TOL = 2e-4
+# emit_links rows against JAX's link_states on the same final state: one FK
+# in fp32 on each side (readings ~2e-7 on poses, ~3e-6 on velocities of up
+# to 13 rad/s); tighter than test_megastep.py:160-170's 5e-4
+LINK_POSE_TOL = 1e-5
+LINK_VEL_TOL = 2e-5
 
 POS_FIELDS = ("base_pos", "base_quat", "q_sph", "q_rev")
 VEL_FIELDS = ("base_lin", "base_ang", "w_sph", "w_rev")
@@ -135,6 +144,10 @@ def _substep_vs_jax(env, eng_j, kind):
         assert np.asarray(want_act).any()   # the contact solver engaged
 
 
+def _max_err(a, b):
+    return float(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64)).max())
+
+
 def _report(what, pairs):
     """Print the max abs error of each (got, want) pair (pytest -s shows it)."""
     errs = {k: float(np.abs(np.asarray(g, np.float64) - np.asarray(w, np.float64)).max())
@@ -210,4 +223,42 @@ def test_cuda_source_control_step_matches_plain(setup):
     got, want = _host_vs_plain(env, _reset_states(env, 6, 11), None)
     _check_step(got, want, "CUDA source, control step")
     assert want[1].sum() > 0
+    for kind in ("reset", "drop"):
+        _cuda_source_emit_links(env, kind)
+
+
+def _cuda_source_emit_links(env, kind):
+    """The megastep's emit_links variant, host-built: its state, flags and
+    history equal the default variant's exactly, and its link rows match
+    JAX's ``link_states(tree, fk(tree, .))`` of its own final state
+    (quaternions up to sign)."""
+    eng = env.engine
+    tree_t = env.tree
+    links = tms.Megastep(eng.meta, eng._substep_fused_core_full,
+                         link_state_fn=lambda st: link_states(tree_t, fk(tree_t, st)))
+    s = _states(env, kind, 16, 23)
+    ts, tr = _targets(16, eng.meta.n_sph, eng.meta.n_rev)
+    args = (tms.pack_state(eng.meta, _to_torch(s)), torch.tensor(ts).reshape(16, -1),
+            torch.tensor(tr))
+    plain_out = eng.mega.host(*args)
+    out = links.host(*args)
+    for a, b in zip(plain_out, out[:3]):
+        assert torch.equal(a, b)
+    final = tms.unpack_state(eng.meta, out[0], _to_torch(s))
+    tree_j = humanoid_tree()
+    want = jax.jit(jax.vmap(lambda st: j_link_states(tree_j, j_fk(tree_j, st))))(
+        _to_jax({k: getattr(final, k).numpy() for k in _fields()}))
+    got = tms.links_to_states(eng.meta, out[3])
+    errs = {}
+    for k in got._fields:
+        g, w = getattr(got, k).numpy(), np.asarray(getattr(want, k))
+        if "quat" in k:
+            g = g * np.sign(np.sum(g * w, -1, keepdims=True))
+        errs[k] = _max_err(g, w)
+    print(f"\nCUDA source, emit_links ({kind}) vs JAX link_states: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items()))
+    for k, v in errs.items():
+        assert v <= (LINK_VEL_TOL if "vel" in k else LINK_POSE_TOL), k
+    if kind == "drop":
+        assert out[1].any()
 
