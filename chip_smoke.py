@@ -6,16 +6,22 @@ Phases, in order; any failure exits non-zero:
 1. a CUDA card is required; prints its name and power limit;
 2. builds the three kernels (``pfpn_torch/csrc/megastep.cu``,
    ``spd_inverse.cu``, ``substep_lin.cu``) with nvcc for sm_90a, one nvcc
-   per source, all started together;
+   per source, all started together, and prints what ptxas reports for the
+   megastep's two instantiations (registers, shared memory, stack frame,
+   spills);
 3. holds the megastep kernel against its plain PyTorch version on the card,
    from perturbed reset states: one substep (B=256), one control step
    (B=16), and the share of envs past the bounds at B=1024; then one env
    step through the kernel against the plain path on the CPU;
 4. the acting path: plays the shipped DPPO + PFPN-35 Walk policy for 10
    deterministic episodes through ``pfpn_torch.tools.export_policy.play``
-   and checks that every env step launched the megastep and nothing else;
-5. times the megastep and its plain version at B=8192 and the env step rate
-   with random actions and with the policy in the loop (CUDA events);
+   and checks that every env step launched the megastep's default variant
+   and nothing else;
+5. times both megastep variants at B=8 and B=8192 for 64, 128 and 256
+   threads per block (one block per env), each as the median of five
+   groups taken in turns, with their range; the plain version at B=8192;
+   the env step rate with random actions and with the policy in the loop
+   (CUDA events);
 6. ``spd_inverse_pair`` against its plain version at B=1024, on H from
    perturbed and drop states; times it, the plain version and the library
    yardstick (``torch.linalg.cholesky_ex`` + ``torch.cholesky_inverse``) at
@@ -44,16 +50,17 @@ Phases, in order; any failure exits non-zero:
    ``PFPN_MEGASTEP_LINKS=1`` against one without (obs, reward, done); at
    the training batch, B=8, the variant against its plain version (state to
    phase 3's control-step bounds, flags exact, link rows as at B=1024); at
-   B=8192 and B=8 both variants and the plain epilogue timed as the median
-   of five groups;
+   B=8192 and B=8 both variants (in turns) and the plain epilogue timed as
+   the median of five groups;
 13. training: ``pfpn_torch.harness.cli.main([... "--train", "--max_rounds",
    "2"])`` on the ``deepmimic_dppo_pfpn`` preset with ``PFPN_MEGASTEP_LINKS=1``:
    2 x 512 launches of the links variant and no other kernel launch,
    ``global_step`` 32, ``total_samples`` 8192, finite losses, moved
    parameters, a checkpoint that restores the same parameters and Adam
    state; the round time split into rollout (of which the megastep) and
-   update; then one update from an identical state and trajectory on the
-   card and on the CPU.
+   update; a ``torch.profiler`` window over rollout steps at B=8 (the
+   device's busy share, the kernels by device time); then one update from
+   an identical state and trajectory on the card and on the CPU.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``.
@@ -82,6 +89,8 @@ JAX_PLAY_RETURN = 578.53   # tools/export_policy.py --play, JAX on the CPU (PERF
 FP32_PEAK = 67e12      # H100 SXM fp32 outside the tensor cores, FLOP/s
 HBM_RATE = 3.35e12     # H100 SXM device memory, bytes/s
 BIG_B = 8192
+THREADS = (64, 128, 256)   # the block sizes phase 5 times (one block per env)
+PROFILE_STEPS = 16         # rollout steps in phase 13's profiler window
 
 
 def card_line() -> str:
@@ -127,6 +136,81 @@ def cuda_ms_spread(fn, warm: int, reps: int, groups: int = 5):
 
 def spread_text(t) -> str:
     return f"{t[0]:.3f} ms ({t[1]:.3f}-{t[2]:.3f})"
+
+
+def in_turns(fns: dict, reps: int, groups: int = 5) -> dict:
+    """{name: (median, min, max)} of ``groups`` groups of cuda_ms(fn, 0,
+    reps) per function, the functions taken in turns within each group
+    (each called once first)."""
+    for fn in fns.values():
+        fn()
+    times = {k: [] for k in fns}
+    for _ in range(groups):
+        for k, fn in fns.items():
+            times[k].append(cuda_ms(fn, 0, reps))
+    return {k: (sorted(v)[len(v) // 2], min(v), max(v)) for k, v in times.items()}
+
+
+def ptxas_report(log: str) -> dict:
+    """{kernel instantiation: {registers, smem_bytes, stack_bytes,
+    spill_stores, spill_loads}} from nvcc's -Xptxas -v output."""
+    import re
+
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
+        if m:
+            name = m.group(1)
+            out.setdefault(name, {})
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out[name].update(stack_bytes=int(m.group(1)), spill_stores=int(m.group(2)),
+                             spill_loads=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+        m = re.search(r"(\d+) bytes smem", line)
+        if m:
+            out[name]["smem_bytes"] = int(m.group(1))
+    return out
+
+
+def profile_summary(prof, steps: int) -> dict:
+    """The device's busy share over a torch.profiler window (the union of
+    the kernels' intervals over the span of every traced event), kernel
+    launches per step, and the kernels by device time."""
+    from torch.autograd import DeviceType
+
+    events = list(prof.events())
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events
+                   if e.device_type == DeviceType.CUDA)
+    if not spans:
+        return {"device_time": False}
+    busy, lo, hi = 0.0, None, None
+    for a, b in spans:
+        if hi is None or a > hi:
+            if hi is not None:
+                busy += hi - lo
+            lo, hi = a, b
+        else:
+            hi = max(hi, b)
+    busy += hi - lo
+    t0 = min(e.time_range.start for e in events)
+    t1 = max(e.time_range.end for e in events)
+    top = []
+    for a in prof.key_averages():
+        dev_us = getattr(a, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(a, "self_cuda_time_total", 0.0)
+        if getattr(a, "device_type", None) == DeviceType.CUDA and dev_us > 0:
+            top.append((dev_us, a.key, a.count))
+    top.sort(reverse=True)
+    return {"device_time": True, "window_ms": (t1 - t0) / 1e3, "busy_ms": busy / 1e3,
+            "busy_share": busy / (t1 - t0), "kernels_per_step": len(spans) / steps,
+            "top": [{"kernel": k[:90], "ms": us / 1e3, "calls": n} for us, k, n in top[:8]]}
 
 
 @contextlib.contextmanager
@@ -182,18 +266,34 @@ def main():
         build_time[lib.name] = secs
         print(f"build: {path} in {secs:.1f} s")
         for line in log.splitlines():
-            if "ptxas" in line or "error" in line or "warning" in line:
+            if ("ptxas" in line or "error" in line or "warning" in line
+                    or "stack frame" in line):
                 print(f"  {line.strip()}")
         lib.load()
     build_s = build_time["megastep"]
+    # the megastep's two instantiations, megastep_kernel<false> (default)
+    # and <true> (emit_links), as ptxas compiled them
+    report = ptxas_report(built[0][1])
+    ptxas = {variant: next((v for k, v in report.items() if f"megastep_kernelILb{flag}E" in k),
+                           None)
+             for variant, flag in (("default", 0), ("emit_links", 1))}
+    mega_lib = ms.LIBRARY.load()
+    default_threads = mega_lib.pfpn_megastep_default_threads()
+    print(f"megastep ptxas, sm_90a: {json.dumps(ptxas)}; {default_threads} threads per "
+          f"block by default")
+    check(all(ptxas.values()) or not report,
+          f"megastep: ptxas reported no instantiation of both variants: {sorted(report)}")
 
     def reset_counts():
         for wrapper in counted:
             wrapper.launches = 0
+        counted[0].launches_links = 0
 
     def counts():
-        return {name: wrapper.launches for name, wrapper in zip(
+        out = {name: wrapper.launches for name, wrapper in zip(
             ("megastep", "spd_inverse", "substep_lin"), counted)}
+        out["megastep_emit_links"] = counted[0].launches_links
+        return out
 
     # ---- 3. kernel vs plain -----------------------------------------------
     env = make("DeepMimicWalk-v0", device=dev)
@@ -324,20 +424,33 @@ def main():
     check(bool(torch.isfinite(rew).all()), "play: return not finite")
     check(steps >= 1 and launches == steps,
           f"play: {launches} kernel launches for {steps} env steps")
-    check(acting_counts["spd_inverse"] == 0 and acting_counts["substep_lin"] == 0,
+    check(acting_counts["spd_inverse"] == 0 and acting_counts["substep_lin"] == 0
+          and acting_counts["megastep_emit_links"] == 0,
           f"play: other kernels launched on the megastep path: {acting_counts}")
 
     # ---- 5. times -------------------------------------------------------------
+    # both variants at both batch sizes for each block size, in turns
+    sweep = {}
+    for B, reps in ((8, 20), (BIG_B, 2)):   # the training batch; the bench batch
+        st, ts, tr = perturbed(B, 5)
+        fns = {(links, th): (lambda links=links, th=th: mega.kernel(
+                   st, ts, tr, links=links, threads=th))
+               for links in (False, True) for th in THREADS}
+        for (links, th), t in in_turns(fns, reps).items():
+            sweep[(B, "emit_links" if links else "default", th)] = t
+    for (B, variant, th), t in sorted(sweep.items()):
+        print(f"megastep B={B} {variant}, {th} threads per block [{card}], median (min-max) "
+              f"of 5 groups in turns: {spread_text(t)}")
+    kernel_ms = sweep[(BIG_B, "default", default_threads)][0]
     st, ts, tr = perturbed(BIG_B, 5)
-    kernel_ms = cuda_ms(lambda: mega.kernel(st, ts, tr), warm=2, reps=10)
     plain_ms = cuda_ms(lambda: mega.plain(st, ts, tr), warm=1, reps=2)
     flops = ms.megastep_flops(meta) * BIG_B
     nbytes = ms.megastep_bytes(meta, BIG_B)
     t_ops, t_bytes = flops / FP32_PEAK * 1e3, nbytes / HBM_RATE * 1e3
     bound_ms = max(t_ops, t_bytes)
     bound_by = "operations" if t_ops >= t_bytes else "bytes"
-    print(f"megastep B={BIG_B} [{card}]: kernel {kernel_ms:.3f} ms, plain "
-          f"{plain_ms:.3f} ms, bound {bound_ms:.3f} ms by {bound_by} "
+    print(f"megastep B={BIG_B} [{card}]: kernel {kernel_ms:.3f} ms ({default_threads} threads), "
+          f"plain {plain_ms:.3f} ms, bound {bound_ms:.3f} ms by {bound_by} "
           f"({flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.2f} MB)")
 
     g = torch.Generator(device=dev).manual_seed(6)
@@ -590,7 +703,7 @@ def main():
           f"largest per-episode gap {play_off_gap:.3f}; {steps_off} env steps, launches "
           f"{off_counts}")
     check(bool(torch.isfinite(rew_off).all()), "play, megastep off: return not finite")
-    check(off_counts == {"megastep": 0, "spd_inverse": 0,
+    check(off_counts == {"megastep": 0, "megastep_emit_links": 0, "spd_inverse": 0,
                          "substep_lin": meta.frame_skip * steps_off},
           f"play, megastep off: launches {off_counts} for {steps_off} env steps")
     # control steps of the two paths agree to 2e-4 in positions (phase 9): over
@@ -609,8 +722,9 @@ def main():
           "step_log: not finite")
     log_ms = cuda_ms(lambda: env.step_log(log_state, log_act), warm=0, reps=2)
     log_counts = counts()
-    check(log_counts == {"megastep": 0, "spd_inverse": 3 * meta.frame_skip,
-                         "substep_lin": 0}, f"step_log: launches {log_counts} for 3 steps")
+    check(log_counts == {"megastep": 0, "megastep_emit_links": 0,
+                         "spd_inverse": 3 * meta.frame_skip, "substep_lin": 0},
+          f"step_log: launches {log_counts} for 3 steps")
     print(f"step_log B={BIG_B} [{card}]: {log_ms:.2f} ms per env step; launches "
           f"{log_counts} for 3 env steps")
 
@@ -627,8 +741,9 @@ def main():
     tq_sim = tq_state["s"].sim
     check(all(bool(torch.isfinite(getattr(tq_sim, k)).all()) for k in pos + vel),
           "torque control: state not finite")
-    check(tq_counts == {"megastep": 0, "spd_inverse": 3 * meta.frame_skip,
-                        "substep_lin": 0}, f"torque control: launches {tq_counts} for 3 steps")
+    check(tq_counts == {"megastep": 0, "megastep_emit_links": 0,
+                        "spd_inverse": 3 * meta.frame_skip, "substep_lin": 0},
+          f"torque control: launches {tq_counts} for 3 steps")
     tq_sps = BIG_B / (tq_ms / 1e3)
     print(f"step_autoreset B={BIG_B}, torque control, random normalized torques in "
           f"+-0.2 [{card}]: {tq_sps:.0f} env steps/s ({tq_ms:.2f} ms per step); "
@@ -655,10 +770,10 @@ def main():
 
     with megastep_links_on():
         env_l = make("DeepMimicWalk-v0", device=dev)
-    mega_l = env_l.engine.mega_links
-    check(mega_l is not None, "PFPN_MEGASTEP_LINKS=1: the engine has no emit_links variant")
+    mega_l = env_l.engine.mega
+    check(env_l.engine.megastep_links, "PFPN_MEGASTEP_LINKS=1: the engine's switch is off")
     st, ts, tr = perturbed(1024, 17)
-    got_l = mega_l.kernel(st, ts, tr)
+    got_l = mega_l.kernel(st, ts, tr, links=True)
     got_d = mega.kernel(st, ts, tr)
     torch.cuda.synchronize()
     check(all(bool(torch.equal(a, b)) for a, b in zip(got_d, got_l[:3])),
@@ -693,8 +808,8 @@ def main():
     res_off = env.step(state, act)
     res_on = env_l.step(state, act)
     torch.cuda.synchronize()
-    check(mega.launches == n_def + 1 and mega_l.launches == 2
-          and env_l.engine.mega.launches == 0,
+    check(mega.launches == n_def + 1 and mega_l.launches_links == 2
+          and mega_l.launches == 0,
           "env step: the links switch did not route the step through emit_links")
     e_obs = float((res_on.obs - res_off.obs).abs().max())
     e_rew = float((res_on.reward - res_off.reward).abs().max())
@@ -708,8 +823,8 @@ def main():
     # its plain version, the state to phase 3's control-step bounds, flags
     # exact, and its link rows as at B=1024
     st, ts, tr = perturbed(8, 20)
-    got8 = mega_l.kernel(st, ts, tr)
-    want8 = mega_l.plain(st, ts, tr)
+    got8 = mega_l.kernel(st, ts, tr, links=True)
+    want8 = mega_l.plain(st, ts, tr, links=True)
     torch.cuda.synchronize()
     e8 = summary(errors(got8, want8))
     e8_links = link_errors(got8, "B=8")
@@ -721,20 +836,14 @@ def main():
         check(e8[k] <= tol, f"emit_links B=8: {k} error {e8[k]:.3g} > {tol:g}")
 
     variant_t = {}
-    for B, reps in ((BIG_B, 2), (8, 10)):   # the bench batch; the training batch
+    for B, reps in ((BIG_B, 2), (8, 20)):   # the bench batch; the training batch
         st, ts, tr = perturbed(B, 19)
         final = ms.unpack_state(meta, st, zero_state(tree, B, device=dev))
-        for fn in (lambda: mega.kernel(st, ts, tr), lambda: mega_l.kernel(st, ts, tr)):
-            fn()
-        times_d, times_l = [], []
-        for _ in range(5):      # in turns: default, links, default, links, ...
-            times_d.append(cuda_ms(lambda: mega.kernel(st, ts, tr), warm=0, reps=reps))
-            times_l.append(cuda_ms(lambda: mega_l.kernel(st, ts, tr), warm=0, reps=reps))
-        variant_t[B] = {
-            "default": (sorted(times_d)[2], min(times_d), max(times_d)),
-            "emit_links": (sorted(times_l)[2], min(times_l), max(times_l)),
-            "plain_epilogue": cuda_ms_spread(lambda: link_states(tree, fk(tree, final)),
-                                             warm=2, reps=10)}
+        variant_t[B] = in_turns({       # default, links, default, links, ...
+            "default": lambda: mega.kernel(st, ts, tr),
+            "emit_links": lambda: mega.kernel(st, ts, tr, links=True)}, reps)
+        variant_t[B]["plain_epilogue"] = cuda_ms_spread(
+            lambda: link_states(tree, fk(tree, final)), warm=2, reps=10)
         del st, ts, tr, final
     def_t, links_t, epi_t = (variant_t[BIG_B][k] for k in ("default", "emit_links",
                                                             "plain_epilogue"))
@@ -806,7 +915,7 @@ def main():
         train_s = time.time() - t0
         eng_t = algo_t.env.engine
         train_counts = {"megastep": eng_t.mega.launches,
-                        "megastep_emit_links": eng_t.mega_links.launches,
+                        "megastep_emit_links": eng_t.mega.launches_links,
                         "spd_inverse": linalg.launches - n_spd,
                         "substep_lin": sl.launches - n_sl}
         with open(os.path.join(cfg.log_dir(root), "metrics.jsonl")) as fh:
@@ -841,6 +950,30 @@ def main():
           f"{train_stats['samples_per_s']:.1f} samples/s; launches {train_counts}; "
           f"global_step {state_t.global_step}, total_samples {state_t.total_samples}")
     print(f"training losses: {json.dumps(losses)}")
+
+    # a profiler window over rollout steps at the training batch (B=8),
+    # through the emit_links variant as the training run took them
+    from torch.profiler import ProfilerActivity, profile
+
+    prof_ppo = PPO(algo_t.env, algo_t.net,
+                   dataclasses.replace(algo_t.cfg, unroll_length=PROFILE_STEPS))
+    with torch.no_grad():
+        prof_state = prof_ppo.rollout(state_t)[0]          # warm-up
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            prof_ppo.rollout(prof_state)
+            torch.cuda.synchronize()
+    train_profile = profile_summary(prof, PROFILE_STEPS)
+    if train_profile["device_time"]:
+        print(f"training rollout, {PROFILE_STEPS} steps at B=8 under torch.profiler [{card}]: "
+              f"window {train_profile['window_ms']:.2f} ms, device busy "
+              f"{train_profile['busy_ms']:.2f} ms ({train_profile['busy_share']:.1%}), "
+              f"{train_profile['kernels_per_step']:.0f} kernel launches per env step")
+        for row in train_profile["top"]:
+            print(f"  {row['ms']:9.3f} ms  {row['calls']:6d} calls  {row['kernel']}")
+    else:
+        print("training rollout under torch.profiler: the trace shows no device time; "
+              "the CUDA-event split above stands")
     check(train_counts == {"megastep": 0, "megastep_emit_links": 2 * 512,
                            "spd_inverse": 0, "substep_lin": 0},
           f"training: launches {train_counts}, want 1024 of emit_links and nothing else")
@@ -921,6 +1054,10 @@ def main():
         "links_plain": "link_states(fk(.)), the epilogue the variant replaces",
         "links_bound_ms": links_bound_ms, "links_bound_by": links_bound_by,
         "variants_at_training_batch": variant_t[8],
+        "default_threads": default_threads,
+        "threads_sweep_ms": {f"B{B}_{variant}_{th}": t for (B, variant, th), t in sweep.items()},
+        "ptxas": ptxas,
+        "train_profile": train_profile,
         "links_max_abs_err": max(e12.values()),
         "links_max_abs_err_training_batch": max(e8_links.values()),
         "train": train_stats,

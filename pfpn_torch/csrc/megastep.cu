@@ -5,84 +5,125 @@
 // Replaces the TPU kernel pfpn_tpu/ops/megastep.py:_make_kernel (inner
 // `kernel`, :406), launched by megastep_pallas (:1157), in both of its
 // variants: the default one, and emit_links (:994-1077), which also writes
-// the final link states (link_epilogue below). Per substep it runs
-// the TPU kernel's stages in its order: FK; velocity rows and Jacobian
-// columns; per-body inertias; H over the static ancestor-pair sparsity; C
-// by the fixed-frame bias recursion; SPD errors -> f; two unpivoted in-place
-// Gauss-Jordan inverses, of (H + diag(kd dt) + eps) and (H + eps), with the
-// torque-clamp correction; candidate points and top-K by iterative argmin
-// with the static tie-break (c+1)*1e-7; W = Hinv J^T, Gershgorin row sums
-// and projected-Jacobi sweeps in W-form; integration with exp-map
-// quaternions, the +-100 cap and the revolute clamps. Where it departs
-// from the TPU kernel it is for fp32 accuracy against the plain version,
-// and each place says so: H and C in the base frame, H from
-// centre-of-mass composites, one refinement step per inverse solve, true
-// (untied) distances for flags and targets. atan2f replaces the TPU
-// kernel's atan polynomial.
+// the final link states. Per substep it runs the TPU kernel's stages in its
+// order: FK; velocity rows and Jacobian columns; per-body inertias; H over
+// the static ancestor-pair sparsity; C by the fixed-frame bias recursion;
+// SPD errors -> f; two unpivoted Gauss-Jordan inverses, of
+// (H + diag(kd dt) + eps) and (H + eps), with the torque-clamp correction;
+// candidate points and top-K by iterative argmin with the static tie-break
+// (c+1)*1e-7; W = Hinv J^T, Gershgorin row sums and projected-Jacobi sweeps
+// in W-form; integration with exp-map quaternions, the +-100 cap and the
+// revolute clamps. Where it departs from the TPU kernel it is for fp32
+// accuracy against the plain version, and each place says so: H and C in
+// the base frame, H from centre-of-mass composites, one refinement step per
+// inverse solve, true (untied) distances for flags and targets. atan2f
+// replaces the TPU kernel's atan polynomial.
 //
 // Bound on this card. The function moves ~1 KB per env (state, targets in;
-// state, flags, base history out) but does ~11 MFLOP of fp32 arithmetic
-// per env per control step for the humanoid (ndof 34, K 16, 56 rows; per
-// substep ~155 K in the two 34^3 sweeps, ~111 K for W, ~83 K for the
-// upper-triangle Delassus row sums, ~123 K for 16 Jacobi sweeps, ~60 K for
-// the rest; ops/megastep.py:megastep_flops counts it from these loops).
-// At the H100's 67 TFLOP/s fp32 outside the tensor cores that is ~1.3 ms
-// for B = 8192: bound by operations, not bytes.
+// state, flags, base history out) but does ~7.7 MFLOP of fp32 arithmetic
+// per env per control step for the humanoid (ndof 34, K 16, 56 rows), as
+// ops/megastep.py:megastep_flops counts the least work (a Cholesky factor
+// and one solve for each inverse; the two Gauss-Jordan sweeps below do
+// more). At the H100's 67 TFLOP/s fp32 outside the tensor cores that is
+// ~0.95 ms for B = 8192: bound by operations, not bytes.
 //
-// Design. Correct first: one env per thread, so every loop below is the
-// per-env loop of the TPU kernel with the batch moved from lanes to
-// threads. The static tree, gain and contact tables (MegaTables, built once
-// per engine by ops/megastep.py) are copied into shared memory per block
-// and read as broadcasts; the loops run over them, so one file serves any
-// tree within the MS_MAX* limits. The per-env matrices (two n x n inverses
-// and H, the 3K x n contact rows, the n x R W) do not fit in registers:
-// they live in a global workspace laid out batch-innermost,
-// ws[(i*N + j)*B + env], so neighbouring threads touch neighbouring
-// addresses (the GPU's form of the TPU's batch-in-lanes). That makes this
-// first version bound in practice by workspace traffic (~1.6 MB per env
-// per substep through L2 and HBM) and by latency (B = 8192 threads fill a
-// twentieth of the card's thread slots), far above the fp32 bound; the next
-// step is a warp per env with the matrices in shared memory. Built without
-// --use_fast_math: approximate sqrt, division and exp shift knife-edge
-// contacts.
+// Design. One thread block per environment (128 threads by default, the
+// fastest at B = 8192 of 64, 128 and 256; chip_smoke.py phase 5 times all
+// three), its whole workspace in shared memory, so nothing but the inputs
+// and the outputs touches device memory. (One env per thread would run
+// every loop of the training batch, B = 8, in series in one partly filled
+// warp, fill a twentieth of the card's thread slots at B = 8192, and keep
+// the matrices in device memory: ~1.6 MB of L2 traffic per env per
+// substep.) The static tables
+// (MegaTables, ~6 KB) and the per-env arrays (MsSmall: state, targets,
+// per-body frames, inertias, composites and bias terms, per-dof and
+// per-candidate vectors, ~14 KB at their capacities) are static shared
+// memory at constant addresses; the matrices sized by the tables (the two
+// inverses and H, 3 n^2; the 3K x n contact rows; the n x R W; ~28 KB for
+// the humanoid) are dynamic shared memory, the rows and W with odd leading
+// dimensions so that one thread per row reads distinct banks. Every stage
+// is split into phases separated by BL_SYNC() (__syncthreads), about 90 a
+// substep: FK level by level of the tree, world and base frames together;
+// one phase for everything per dof, per body, per candidate and per motor;
+// the composite inertias bottom-up beside the velocity recursion
+// top-down, then the bias forces bottom-up beside H (one thread per
+// element of its upper triangle) and the contact rows (one per (contact,
+// dof)), one tree level a phase; both inverses in the same barrier phases
+// (block_linalg.cuh:gj_sweep_pair, one barrier per pivot); W one thread per
+// (dof, contact) triple; the refinement solves one thread per row; the
+// upper triangle of |A| one thread per element, in the space of Minv and H,
+// dead by then; row sums one thread per row; each Jacobi sweep two phases,
+// one thread per dof for u = W lam and one per contact (its three rows) or
+// limit row for the projected update; integration one thread per joint,
+// into the other copy of the state. Top-K is 16 warp-wide argmin
+// reductions over the candidates by the block's first warp, comparing
+// (keyed distance, index) lexicographically, which picks what the serial
+// `<` scan picks (the lower index among equal keys), whatever the order of
+// the reduction. Every output element is computed by one thread, with the
+// arithmetic and summation order of the one-thread-per-env version
+// (dot_in_order, dot3_in_order), so the thread count changes no result.
+// What bounds it now (tools/megastep_phases.py): the Gauss-Jordan sweeps
+// take ~43% of a block's cycles and the Jacobi sweeps ~22%, chains of
+// shared-memory loads and dependent arithmetic that a single warp per
+// scheduler (B = 8) cannot overlap; at B = 8192 four blocks share an SM
+// (128 registers a thread, ~49 KB of shared memory a block).
 //
-// The same per-env body compiles as plain C++ (g++ -x c++) into a host
-// library, so the CPU tests hold this source's arithmetic against the
-// PyTorch plain version without a card.
+// Built without --use_fast_math: approximate sqrt, division and exp shift
+// knife-edge contacts.
+//
+// The same block body compiles as plain C++ (g++ -x c++) into a host
+// library, run by `threads` host threads with a std::barrier as
+// BL_SYNC(), so the CPU tests hold this source's arithmetic against the
+// PyTorch plain version without a card, and a missing barrier shows as a
+// difference between one thread and several.
 
 #include <math.h>
 #include <stddef.h>
 #include <stdint.h>
 
-// every per-env function is inlined into the one kernel, so the whole body
-// is one frame whose size ptxas reports (-Xptxas -v)
 #ifdef __CUDACC__
 #include <cuda_runtime.h>
 #define MS_HD __host__ __device__ __forceinline__
-#define MS_HD_CALL __host__ __device__ __noinline__
 #else
 #define MS_HD inline
-#define MS_HD_CALL
 #endif
+
+#if defined(__CUDA_ARCH__)
+#define BL_SYNC() __syncthreads()
+#elif !defined(__CUDACC__)
+#include <barrier>
+#include <thread>
+#include <vector>
+// the host build's block barrier, one per host "block" of threads
+static thread_local std::barrier<>* ms_host_barrier = nullptr;
+static inline void ms_host_sync() { ms_host_barrier->arrive_and_wait(); }
+#define BL_SYNC() ms_host_sync()
+#else
+#define BL_SYNC() ((void)0)
+#endif
+#include "block_linalg.cuh"
 
 #define MS_MAXB 16     // bodies
 #define MS_MAXD 40     // dofs
-#define MS_MAXC 48     // contact candidates
+#define MS_MAXC 48     // contact candidates (two per lane of one warp)
 #define MS_MAXK 16     // selected contacts (K)
 #define MS_MAXL 8      // joint-limit rows
 #define MS_MAXS 12     // spherical joints
 #define MS_MAXR 8      // revolute joints
 #define MS_MAXLK 16    // URDF links (the emit_links output)
 #define MS_LINK_ROWS 20
-#define MS_MAXROWS (3 * MS_MAXK + MS_MAXL)
-#define MS_MAXST (13 + 7 * MS_MAXS + 2 * MS_MAXR)
+#define MS_THREADS 128       // threads per block (one block per env)
+#define MS_MAX_THREADS 256   // the most a launch may ask for
 
 // Static tables; ops/megastep.py mirrors this layout with ctypes (all
 // fields are 4 bytes wide, so there is no padding).
 struct MegaTables {
   int ndof, nb, n_sph, n_rev, n_cand, K, n_lim, frame_skip, up, iterations;
-  int n_sph_motors, n_rev_motors;
-  int topo[MS_MAXB];            // non-root bodies, parents first (nb - 1)
+  int n_sph_motors, n_rev_motors, n_levels;
+  int order[MS_MAXB];           // the root, then the other bodies by level
+  int level_off[MS_MAXB + 1];   // level l: order[level_off[l] .. level_off[l+1])
+  int child_off[MS_MAXB + 1];   // children of b: child[child_off[b] ..
+  int child[MS_MAXB];           //   child_off[b+1]), last in `order` first
   int parent[MS_MAXB];
   int jtype[MS_MAXB];           // 0 free, 1 spherical, 2 revolute
   int sph_index[MS_MAXB];
@@ -135,7 +176,7 @@ struct MegaTables {
 
 // ---- small algebra -------------------------------------------------------
 
-MS_HD static void qmul(const float* a, const float* b, float* o) {
+MS_HD void qmul(const float* a, const float* b, float* o) {
   const float x1 = a[0], y1 = a[1], z1 = a[2], w1 = a[3];
   const float x2 = b[0], y2 = b[1], z2 = b[2], w2 = b[3];
   o[0] = w2 * x1 + x2 * w1 - y2 * z1 + z2 * y1;
@@ -144,14 +185,14 @@ MS_HD static void qmul(const float* a, const float* b, float* o) {
   o[3] = w2 * w1 - x2 * x1 - y2 * y1 - z2 * z1;
 }
 
-MS_HD static void qnormalize(float* q) {
+MS_HD void qnormalize(float* q) {
   const float nn = sqrtf(q[0] * q[0] + q[1] * q[1] + q[2] * q[2] + q[3] * q[3]);
   const float inv = 1.0f / fmaxf(nn, 1e-8f);
   q[0] *= inv; q[1] *= inv; q[2] *= inv; q[3] *= inv;
 }
 
 // row-major 3x3 rotation of a unit quaternion
-MS_HD static void q2R(const float* q, float* R) {
+MS_HD void q2R(const float* q, float* R) {
   const float x = q[0], y = q[1], z = q[2], w = q[3];
   const float xx = x * x, yy = y * y, zz = z * z;
   const float xy = x * y, xz = x * z, yz = y * z;
@@ -161,24 +202,24 @@ MS_HD static void q2R(const float* q, float* R) {
   R[6] = 2.0f * (xz - wy); R[7] = 2.0f * (yz + wx); R[8] = 1.0f - 2.0f * (xx + yy);
 }
 
-MS_HD static void Rv(const float* R, const float* v, float* o) {
+MS_HD void Rv(const float* R, const float* v, float* o) {
   for (int i = 0; i < 3; ++i)
     o[i] = R[3 * i] * v[0] + R[3 * i + 1] * v[1] + R[3 * i + 2] * v[2];
 }
 
-MS_HD static void Rtv(const float* R, const float* v, float* o) {
-  for (int i = 0; i < 3; ++i)
-    o[i] = R[i] * v[0] + R[3 + i] * v[1] + R[6 + i] * v[2];
+// row i of R^T v
+MS_HD float Rtv_i(const float* R, const float* v, int i) {
+  return R[i] * v[0] + R[3 + i] * v[1] + R[6 + i] * v[2];
 }
 
-MS_HD static void cross3(const float* a, const float* b, float* o) {
+MS_HD void cross3(const float* a, const float* b, float* o) {
   o[0] = a[1] * b[2] - a[2] * b[1];
   o[1] = a[2] * b[0] - a[0] * b[2];
   o[2] = a[0] * b[1] - a[1] * b[0];
 }
 
 // exp map of (w * scale) as a quaternion
-MS_HD static void qexp_scaled(const float* w, float scale, float* q) {
+MS_HD void qexp_scaled(const float* w, float scale, float* q) {
   const float v0 = w[0] * scale, v1 = w[1] * scale, v2 = w[2] * scale;
   const float ang = sqrtf(v0 * v0 + v1 * v1 + v2 * v2);
   const float half = 0.5f * ang;
@@ -187,7 +228,7 @@ MS_HD static void qexp_scaled(const float* w, float scale, float* q) {
 }
 
 // shortest-path axis*angle of a quaternion
-MS_HD static void q_axis_angle(const float* q, float* e) {
+MS_HD void q_axis_angle(const float* q, float* e) {
   const float sgn = q[3] < 0.0f ? -1.0f : 1.0f;
   const float x = q[0] * sgn, y = q[1] * sgn, z = q[2] * sgn, w = q[3] * sgn;
   const float s = sqrtf(x * x + y * y + z * z);
@@ -198,7 +239,7 @@ MS_HD static void q_axis_angle(const float* q, float* e) {
 }
 
 // spatial cross products on (ang; lin) 6-vectors
-MS_HD static void crm6(const float* v, const float* u, float* o) {
+MS_HD void crm6(const float* v, const float* u, float* o) {
   float a[3], b[3];
   cross3(v, u, o);
   cross3(v, u + 3, a);
@@ -206,7 +247,7 @@ MS_HD static void crm6(const float* v, const float* u, float* o) {
   for (int i = 0; i < 3; ++i) o[3 + i] = a[i] + b[i];
 }
 
-MS_HD static void crf6(const float* v, const float* f, float* o) {
+MS_HD void crf6(const float* v, const float* f, float* o) {
   float a[3], b[3];
   cross3(v, f, a);
   cross3(v + 3, f + 3, b);
@@ -214,45 +255,8 @@ MS_HD static void crf6(const float* v, const float* f, float* o) {
   cross3(v, f + 3, o + 3);
 }
 
-// FK over the static tree from the base pose (q0, p0): every body's
-// quaternion q, position p and rotation matrix R
-MS_HD static void fk_pass_q(const MegaTables& T, const float* q_sph,
-                            const float* q_rev, const float* q0, const float* p0,
-                            float (*q)[4], float (*p)[3], float (*R)[9]) {
-  for (int i = 0; i < 4; ++i) q[0][i] = q0[i];
-  for (int i = 0; i < 3; ++i) p[0][i] = p0[i];
-  q2R(q[0], R[0]);
-  for (int t = 0; t < T.nb - 1; ++t) {
-    const int b = T.topo[t], par = T.parent[b];
-    float qj[4], rel[4], off[3];
-    if (T.jtype[b] == 1) {
-      for (int i = 0; i < 4; ++i) qj[i] = q_sph[4 * T.sph_index[b] + i];
-    } else {
-      const float half = 0.5f * q_rev[T.rev_index[b]];
-      const float sh = sinf(half), ch = cosf(half);
-      qj[0] = T.joint_axis[b][0] * sh;
-      qj[1] = T.joint_axis[b][1] * sh;
-      qj[2] = T.joint_axis[b][2] * sh;
-      qj[3] = ch;
-    }
-    qmul(T.joint_quat[b], qj, rel);
-    qmul(q[par], rel, q[b]);
-    qnormalize(q[b]);
-    q2R(q[b], R[b]);
-    Rv(R[par], T.joint_pos[b], off);
-    for (int i = 0; i < 3; ++i) p[b][i] = p[par][i] + off[i];
-  }
-}
-
-MS_HD static void fk_pass(const MegaTables& T, const float* q_sph,
-                          const float* q_rev, const float* q0, const float* p0,
-                          float (*p)[3], float (*R)[9]) {
-  float q[MS_MAXB][4];
-  fk_pass_q(T, q_sph, q_rev, q0, p0, q, p, R);
-}
-
 // J += m (|r|^2 1 - r r^T): the parallel-axis term of a mass m at r
-MS_HD static void add_parallel_axis(float* J, float m, const float* r) {
+MS_HD void add_parallel_axis(float* J, float m, const float* r) {
   const float rr = r[0] * r[0] + r[1] * r[1] + r[2] * r[2];
   for (int i = 0; i < 3; ++i)
     for (int j = 0; j < 3; ++j)
@@ -261,9 +265,9 @@ MS_HD static void add_parallel_axis(float* J, float m, const float* r) {
 
 // motion column of dof d about the point o: (a; (p - o) x a) for a
 // rotation about the axis a through the body origin p, (0; a) for a slide
-MS_HD static void col_about(const MegaTables& T, const float (*col)[6],
-                                   const float (*pb)[3], const float* o, int d,
-                                   float* a, float* l) {
+MS_HD void col_about(const MegaTables& T, const float (*col)[6],
+                     const float (*pb)[3], const float* o, int d, float* a,
+                     float* l) {
   if (T.dof_is_linear[d]) {
     for (int i = 0; i < 3; ++i) { a[i] = 0.0f; l[i] = col[d][3 + i]; }
     return;
@@ -274,81 +278,132 @@ MS_HD static void col_about(const MegaTables& T, const float (*col)[6],
   cross3(r, a, l);
 }
 
-// ---- workspace (batch-innermost) ------------------------------------------
+// Three dot products against one vector, s_i = sum_k a_i[k] x[k], each
+// accumulated in k order as dot_in_order does; the loads of each batch of
+// 4 terms are issued before its arithmetic.
+MS_HD void dot3_in_order(const float* a0, const float* a1, const float* a2,
+                         const float* x, int n, float& s0, float& s1, float& s2) {
+  s0 = a0[0] * x[0];
+  s1 = a1[0] * x[0];
+  s2 = a2[0] * x[0];
+  int k = 1;
+  for (; k + 4 <= n; k += 4) {
+    float xv[4], p0[4], p1[4], p2[4];
+#ifdef __CUDA_ARCH__
+#pragma unroll
+#endif
+    for (int c = 0; c < 4; ++c) {
+      xv[c] = x[k + c];
+      p0[c] = a0[k + c];
+      p1[c] = a1[k + c];
+      p2[c] = a2[k + c];
+    }
+#ifdef __CUDA_ARCH__
+#pragma unroll
+#endif
+    for (int c = 0; c < 4; ++c) {
+      s0 += p0[c] * xv[c];
+      s1 += p1[c] * xv[c];
+      s2 += p2[c] * xv[c];
+    }
+  }
+  for (; k < n; ++k) {
+    s0 += a0[k] * x[k];
+    s1 += a1[k] * x[k];
+    s2 += a2[k] * x[k];
+  }
+}
 
-struct Workspace {
-  float* base;
-  size_t B;
-  size_t env;
-  MS_HD float& at(size_t off) const { return base[off * B + env]; }
+// The first item of a list that thread `tid` of `nt` takes, when the
+// phase's lists are dealt out as one sequence and this list starts at
+// position `base` of it (so several short lists share the threads evenly).
+MS_HD int first_item(int tid, int nt, int base) {
+  const int r = (tid - base) % nt;
+  return r < 0 ? r + nt : r;
+}
+
+// ---- the block's shared memory ----------------------------------------------
+
+#define MS_MAXST (13 + 7 * MS_MAXS + 2 * MS_MAXR)
+#define MS_MAXROWS (3 * MS_MAXK + MS_MAXL)
+
+// The block's per-env arrays, at their capacities, in static shared memory:
+// their addresses are constants, not registers.
+struct MsSmall {
+  float st[2][MS_MAXST];            // the state, double-buffered
+  float tgt_sph[4 * MS_MAXS], tgt_rev[MS_MAXR];
+  float qw[MS_MAXB][4], pw[MS_MAXB][3], Rw[MS_MAXB][9];   // world FK
+  float qb[MS_MAXB][4], pb[MS_MAXB][3], Rb[MS_MAXB][9];   // base-frame FK
+  float io[MS_MAXB][36], mc[MS_MAXB], bcom[MS_MAXB][3], fm[MS_MAXB][3];
+  float ccom[MS_MAXB][3], jc[MS_MAXB][9];
+  float vhat[MS_MAXB][6], abias[MS_MAXB][6], fb[MS_MAXB][6];
+  float v[MS_MAXD], col[MS_MAXD][6], waxis[MS_MAXD][3];
+  float f[MS_MAXD], kpe[MS_MAXD], a[MS_MAXD], dtau[MS_MAXD], tmp[MS_MAXD];
+  float vstar[MS_MAXD], u[MS_MAXD], r[MS_MAXD];
+  float dist[MS_MAXC], dwork[MS_MAXC], xs[MS_MAXC][3], act_all[MS_MAXC];
+  int sel[MS_MAXK];
+  float sel_dist[MS_MAXK];
+  float target[MS_MAXROWS], act[MS_MAXROWS], step[MS_MAXROWS];
+  float bvec[MS_MAXROWS], lam[MS_MAXROWS];
+  float gj[8 * MS_MAXD];            // gj_sweep_pair's row and column copies
 };
 
-#define GJ_CHUNK 8
+// The matrices, sized by the tables, in the block's dynamic shared memory
+// (offsets in floats). Hinv and Minv are stacked (gj_sweep_pair); the upper
+// triangle of |A| takes the space of Minv and H once the refinement steps
+// are done. The contact rows and W have odd leading dimensions (ldr, ldw),
+// so that threads reading one row each hit distinct banks (a stride of 56
+// floats put W's rows in 4 of the 32 banks).
+struct MsLayout {
+  int hinv, minv, h, a, rows, w, ldr, ldw, total;
+};
 
-// in-place unpivoted Gauss-Jordan inverse of an n x n block at `off`
-// (ops/megastep.py:_sweep): pivots k = 0..n-1, then negate
-MS_HD static void gj_sweep(const Workspace& ws, size_t off, int n) {
-  float row_k[MS_MAXD], col_k[MS_MAXD];
-  for (int kk = 0; kk < n; ++kk) {
-    const float inv_d = 1.0f / ws.at(off + (size_t)kk * n + kk);
-    for (int j = 0; j < n; ++j) {
-      row_k[j] = ws.at(off + (size_t)kk * n + j) * inv_d;
-      col_k[j] = ws.at(off + (size_t)j * n + kk);
-    }
-    // rank-1 update of every row but kk (column kk is overwritten below).
-    // Loads and stores share one pointer, so the compiler keeps each load
-    // behind the previous store; loading GJ_CHUNK elements before storing
-    // any puts that many loads in flight instead of one.
-    for (int i = 0; i < n; ++i) {
-      if (i == kk) continue;
-      const float ci = col_k[i];
-      const size_t row = off + (size_t)i * n;
-      for (int j0 = 0; j0 < n; j0 += GJ_CHUNK) {
-        float x[GJ_CHUNK];
-#pragma unroll
-        for (int c = 0; c < GJ_CHUNK; ++c)
-          if (j0 + c < n) x[c] = ws.at(row + j0 + c);
-#pragma unroll
-        for (int c = 0; c < GJ_CHUNK; ++c)
-          if (j0 + c < n) ws.at(row + j0 + c) = x[c] - ci * row_k[j0 + c];
-      }
-    }
-    for (int j = 0; j < n; ++j) ws.at(off + (size_t)kk * n + j) = row_k[j];
-    for (int i = 0; i < n; ++i) ws.at(off + (size_t)i * n + kk) = col_k[i] * inv_d;
-    ws.at(off + (size_t)kk * n + kk) = -inv_d;
+MS_HD MsLayout ms_layout(const MegaTables& T) {
+  const int n = T.ndof, K3 = 3 * T.K, R = K3 + T.n_lim;
+  MsLayout s;
+  s.ldr = n | 1;
+  s.ldw = R | 1;
+  s.hinv = 0;
+  s.minv = s.a = n * n;
+  s.h = 2 * n * n;
+  const int mh = 2 * n * n > K3 * K3 ? 2 * n * n : K3 * K3;
+  s.rows = n * n + mh;
+  s.w = s.rows + K3 * s.ldr;
+  s.total = s.w + n * s.ldw;
+  return s;
+}
+
+// ---- FK ----------------------------------------------------------------------
+
+// body b's quaternion, position and rotation from its parent's (the root's
+// from the base pose q0, p0)
+MS_HD void fk_body(const MegaTables& T, const float* q_sph, const float* q_rev,
+                   const float* q0, const float* p0, int b, float (*q)[4],
+                   float (*p)[3], float (*R)[9]) {
+  if (b == 0) {
+    for (int i = 0; i < 4; ++i) q[0][i] = q0[i];
+    for (int i = 0; i < 3; ++i) p[0][i] = p0[i];
+    q2R(q[0], R[0]);
+    return;
   }
-  for (size_t i = 0; i < (size_t)n * n; ++i) ws.at(off + i) = -ws.at(off + i);
-}
-
-// y = M x for the n x n block at `off`
-MS_HD static void ws_matvec(const Workspace& ws, size_t off, int n,
-                            const float* x, float* y) {
-  for (int i = 0; i < n; ++i) {
-    float acc = ws.at(off + (size_t)i * n) * x[0];
-    for (int k = 1; k < n; ++k) acc += ws.at(off + (size_t)i * n + k) * x[k];
-    y[i] = acc;
+  const int par = T.parent[b];
+  float qj[4], rel[4], off[3];
+  if (T.jtype[b] == 1) {
+    for (int i = 0; i < 4; ++i) qj[i] = q_sph[4 * T.sph_index[b] + i];
+  } else {
+    const float half = 0.5f * q_rev[T.rev_index[b]];
+    const float sh = sinf(half), ch = cosf(half);
+    qj[0] = T.joint_axis[b][0] * sh;
+    qj[1] = T.joint_axis[b][1] * sh;
+    qj[2] = T.joint_axis[b][2] * sh;
+    qj[3] = ch;
   }
-}
-
-// x += Minv (b - (H + diag) x): one step of iterative refinement of
-// x = Minv b, where Minv is the explicit inverse of (H + diag), with H the
-// n x n block at `off_h`
-MS_HD static void refine(const Workspace& ws, size_t off_inv, size_t off_h,
-                         int n, const float* diag, float diag_c,
-                         const float* b, float* x) {
-  float r[MS_MAXD], dx[MS_MAXD];
-  ws_matvec(ws, off_h, n, x, r);
-  for (int i = 0; i < n; ++i)
-    r[i] = b[i] - (r[i] + (diag ? diag[i] : diag_c) * x[i]);
-  ws_matvec(ws, off_inv, n, r, dx);
-  for (int i = 0; i < n; ++i) x[i] += dx[i];
-}
-
-// floats of workspace one env needs: Minv, Hinv and H (n x n each), the
-// 3K x n contact rows and the n x R W, at the offsets megastep_env uses
-static size_t ws_floats(const MegaTables& T) {
-  const size_t n = T.ndof, R = 3 * T.K + T.n_lim;
-  return 3 * n * n + 3 * (size_t)T.K * n + n * R;
+  qmul(T.joint_quat[b], qj, rel);
+  qmul(q[par], rel, q[b]);
+  qnormalize(q[b]);
+  q2R(q[b], R[b]);
+  Rv(R[par], T.joint_pos[b], off);
+  for (int i = 0; i < 3; ++i) p[b][i] = p[par][i] + off[i];
 }
 
 // ---- the emit_links epilogue -------------------------------------------------
@@ -358,17 +413,14 @@ static size_t ws_floats(const MegaTables& T) {
 // semantics). The substep loop's FK is of the pre-step state, so this runs
 // one more FK and a spatial-velocity pass about the world origin,
 // vhat_b = vhat_parent + sum_d [a_w; p_b x a_w] v_d ([0; a_w] v_d for a
-// slide), from the base's (w; v + p x w). Then per link: frame and
+// slide), from the base's (w; v + p x w), level by level (the velocities of
+// level l beside the FK of level l+1). Then one thread per link: frame and
 // centre-of-mass pose, and the velocity of the centre of mass. Writes
 // MS_LINK_ROWS rows per link in LinkStates field order: frame_pos(3),
 // frame_quat(4), com_pos(3), com_quat(4), lin_vel(3), ang_vel(3).
-// Called, not inlined: inlined into the body, it changed how ptxas
-// compiled the substep loop (144 registers instead of 142) and the variant
-// took 630 ms against the default's 561 ms at B = 8192 on an H100; called,
-// the loop keeps the default's 142 registers and its time, and the
-// epilogue gets a frame of its own (14,224 bytes of stack in all).
-MS_HD_CALL static void link_epilogue(const MegaTables& T, const float* st,
-                                     float* links_out) {
+MS_HD void link_epilogue(const MegaTables& T, const float* st, float (*qw)[4],
+                         float (*pw)[3], float (*Rw)[9], float (*vhat)[6],
+                         float* links_out, int tid, int nt) {
   const int S = T.n_sph, NR = T.n_rev;
   const float* base_quat = st;
   const float* base_pos = st + 4;
@@ -379,102 +431,157 @@ MS_HD_CALL static void link_epilogue(const MegaTables& T, const float* st,
   const float* q_rev = st + 13 + 7 * S;
   const float* w_rev = st + 13 + 7 * S + NR;
 
-  float qw[MS_MAXB][4], pw[MS_MAXB][3], Rw[MS_MAXB][9];
-  fk_pass_q(T, q_sph, q_rev, base_quat, base_pos, qw, pw, Rw);
-
-  float vhat[MS_MAXB][6];
-  {
-    float pxw[3];
-    cross3(base_pos, base_ang, pxw);
-    for (int i = 0; i < 3; ++i) {
-      vhat[0][i] = base_ang[i];
-      vhat[0][3 + i] = base_lin[i] + pxw[i];
+  for (int lev = 0; lev <= T.n_levels; ++lev) {
+    int base = 0;
+    if (lev < T.n_levels) {
+      const int lo = T.level_off[lev], cnt = T.level_off[lev + 1] - lo;
+      for (int i = first_item(tid, nt, base); i < cnt; i += nt)
+        fk_body(T, q_sph, q_rev, base_quat, base_pos, T.order[lo + i], qw, pw, Rw);
+      base += cnt;
     }
-  }
-  for (int t = 0; t < T.nb - 1; ++t) {
-    const int b = T.topo[t], p = T.parent[b];
-    const int d = T.dof_offset[b];
-    float add[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-    for (int c = 0; c < T.dof_count[b]; ++c) {
-      const float vd = T.jtype[b] == 1 ? w_sph[3 * T.sph_index[b] + c]
-                                       : w_rev[T.rev_index[b]];
-      float aw[3];
-      Rv(Rw[b], T.dof_axis[d + c], aw);
-      if (T.dof_is_linear[d + c]) {
-        for (int i = 0; i < 3; ++i) add[3 + i] += aw[i] * vd;
-      } else {
-        float pxa[3];
-        cross3(pw[b], aw, pxa);
-        for (int i = 0; i < 3; ++i) {
-          add[i] += aw[i] * vd;
-          add[3 + i] += pxa[i] * vd;
+    if (lev >= 1) {
+      const int lo = T.level_off[lev - 1], cnt = T.level_off[lev] - lo;
+      for (int i = first_item(tid, nt, base); i < cnt; i += nt) {
+        const int b = T.order[lo + i];
+        if (b == 0) {
+          float pxw[3];
+          cross3(base_pos, base_ang, pxw);
+          for (int k = 0; k < 3; ++k) {
+            vhat[0][k] = base_ang[k];
+            vhat[0][3 + k] = base_lin[k] + pxw[k];
+          }
+          continue;
         }
+        const int p = T.parent[b], d = T.dof_offset[b];
+        float add[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+        for (int c = 0; c < T.dof_count[b]; ++c) {
+          const float vd = T.jtype[b] == 1 ? w_sph[3 * T.sph_index[b] + c]
+                                           : w_rev[T.rev_index[b]];
+          float aw[3];
+          Rv(Rw[b], T.dof_axis[d + c], aw);
+          if (T.dof_is_linear[d + c]) {
+            for (int k = 0; k < 3; ++k) add[3 + k] += aw[k] * vd;
+          } else {
+            float pxa[3];
+            cross3(pw[b], aw, pxa);
+            for (int k = 0; k < 3; ++k) {
+              add[k] += aw[k] * vd;
+              add[3 + k] += pxa[k] * vd;
+            }
+          }
+        }
+        for (int r = 0; r < 6; ++r) vhat[b][r] = vhat[p][r] + add[r];
       }
     }
-    for (int r = 0; r < 6; ++r) vhat[b][r] = vhat[p][r] + add[r];
+    BL_SYNC();
   }
 
-  for (int l = 0; l < T.n_links; ++l) {
+  for (int l = tid; l < T.n_links; l += nt) {
     const int b = T.link_body[l];
     float* o = links_out + MS_LINK_ROWS * l;
-    float off[3], Rf[9], ioff[3], wxc[3];
+    float fp[3], fq[4], cp[3], cq[4], off[3], Rf[9], ioff[3], wxc[3];
     Rv(Rw[b], T.link_pos[l], off);
-    for (int i = 0; i < 3; ++i) o[i] = pw[b][i] + off[i];          // frame_pos
-    qmul(qw[b], T.link_quat[l], o + 3);                             // frame_quat
-    q2R(o + 3, Rf);
+    for (int i = 0; i < 3; ++i) fp[i] = pw[b][i] + off[i];
+    qmul(qw[b], T.link_quat[l], fq);
+    q2R(fq, Rf);
     Rv(Rf, T.link_ipos[l], ioff);
-    for (int i = 0; i < 3; ++i) o[7 + i] = o[i] + ioff[i];          // com_pos
-    qmul(o + 3, T.link_iquat[l], o + 10);                           // com_quat
-    cross3(vhat[b], o + 7, wxc);
+    for (int i = 0; i < 3; ++i) cp[i] = fp[i] + ioff[i];
+    qmul(fq, T.link_iquat[l], cq);
+    cross3(vhat[b], cp, wxc);
     for (int i = 0; i < 3; ++i) {
-      o[14 + i] = vhat[b][3 + i] + wxc[i];                          // lin_vel
-      o[17 + i] = vhat[b][i];                                       // ang_vel
+      o[i] = fp[i];                                  // frame_pos
+      o[7 + i] = cp[i];                              // com_pos
+      o[14 + i] = vhat[b][3 + i] + wxc[i];           // lin_vel
+      o[17 + i] = vhat[b][i];                        // ang_vel
+    }
+    for (int i = 0; i < 4; ++i) {
+      o[3 + i] = fq[i];                              // frame_quat
+      o[10 + i] = cq[i];                             // com_quat
     }
   }
 }
 
-// ---- one env, `substeps` substeps ------------------------------------------
+// ---- one env, `substeps` substeps, by thread tid of nt --------------------------
 
-// EMIT_LINKS selects the variant at compile time, so the default variant
-// (false) compiles to the same code as before the epilogue existed.
+// EMIT_LINKS selects the variant at compile time. `sm` holds the block's
+// per-env arrays and `sh` its matrices (ms_layout(T).total floats).
 template <bool EMIT_LINKS>
-MS_HD static void megastep_env(const MegaTables& T, const float* st_in,
-                               const float* tgt_sph_in, const float* tgt_rev_in,
-                               float* st_out, float* act_out, float* hist_out,
-                               float* links_out, const Workspace& ws,
-                               int substeps) {
-  const int n = T.ndof, nb = T.nb, K = T.K, K3 = 3 * T.K;
-  const int R = K3 + T.n_lim;
+MS_HD void megastep_block(const MegaTables& T, const float* st_in,
+                          const float* tgt_sph_in, const float* tgt_rev_in,
+                          float* st_out, float* act_out, float* hist_out,
+                          float* links_out, MsSmall& sm, float* sh, int substeps,
+                          int tid, int nt) {
+  const int n = T.ndof, nb = T.nb, nc = T.n_cand, K = T.K, K3 = 3 * T.K;
+  const int NL = T.n_lim, R = K3 + NL;
   const int S = T.n_sph, NR = T.n_rev;
-  const int rows_state = 13 + 7 * S + 2 * NR;
+  const int rs = 13 + 7 * S + 2 * NR;
+  const int n_sm = T.n_sph_motors, n_m = T.n_sph_motors + T.n_rev_motors;
+  const int levels = T.n_levels;
   const int up = T.up;
   const int t1x = up == 0 ? 1 : 0;
   const int t2x = up == 2 ? 1 : 2;
   const float dt = T.dt;
-  const size_t OFF_MINV = 0, OFF_HINV = (size_t)n * n, OFF_H = 2 * (size_t)n * n;
-  const size_t OFF_ROWS = 3 * (size_t)n * n;
-  const size_t OFF_W = OFF_ROWS + (size_t)K3 * n;
+  const MsLayout L = ms_layout(T);
+  const int ldr = L.ldr, ldw = L.ldw;
 
-  float st[MS_MAXST], tgt_sph[MS_MAXS * 4], tgt_rev[MS_MAXR];
-  for (int i = 0; i < rows_state; ++i) st[i] = st_in[i];
-  for (int i = 0; i < 4 * S; ++i) tgt_sph[i] = tgt_sph_in[i];
-  for (int i = 0; i < NR; ++i) tgt_rev[i] = tgt_rev_in[i];
+  float* Hinv = sh + L.hinv;
+  float* Minv = sh + L.minv;
+  float* H = sh + L.h;
+  float* A = sh + L.a;
+  float* rows = sh + L.rows;
+  float* W = sh + L.w;
+  float (*stbuf)[MS_MAXST] = sm.st;
+  float* tgt_sph = sm.tgt_sph;
+  float* tgt_rev = sm.tgt_rev;
+  float (*qw)[4] = sm.qw;
+  float (*pw)[3] = sm.pw;
+  float (*Rw)[9] = sm.Rw;
+  float (*qb)[4] = sm.qb;
+  float (*pb)[3] = sm.pb;
+  float (*Rb)[9] = sm.Rb;
+  float (*io)[36] = sm.io;
+  float* mc = sm.mc;
+  float (*bcom)[3] = sm.bcom;
+  float (*fm)[3] = sm.fm;
+  float (*ccom)[3] = sm.ccom;
+  float (*jc)[9] = sm.jc;
+  float (*vhat)[6] = sm.vhat;
+  float (*abias)[6] = sm.abias;
+  float (*fb)[6] = sm.fb;
+  float* v = sm.v;
+  float (*col)[6] = sm.col;
+  float (*waxis)[3] = sm.waxis;
+  float* f = sm.f;
+  float* kpe = sm.kpe;
+  float* a = sm.a;
+  float* dtau = sm.dtau;
+  float* tmp = sm.tmp;
+  float* vstar = sm.vstar;
+  float* u = sm.u;
+  float* r = sm.r;
+  float* dist = sm.dist;
+  float* dwork = sm.dwork;
+  float (*xs)[3] = sm.xs;
+  float* act_all = sm.act_all;
+  int* sel = sm.sel;
+  float* sel_dist = sm.sel_dist;
+  float* target = sm.target;
+  float* act = sm.act;               // act_n (K), then act_l (n_lim)
+  float* step = sm.step;
+  float* bvec = sm.bvec;
+  float* lam = sm.lam;
 
-  float pw[MS_MAXB][3], Rw[MS_MAXB][9];
-  float v[MS_MAXD], col[MS_MAXD][6], waxis[MS_MAXD][3];
-  float io[MS_MAXB][36];
-  float mc[MS_MAXB], bcom[MS_MAXB][3], ccom[MS_MAXB][3], jc[MS_MAXB][9];
-  float vhat[MS_MAXB][6], abias[MS_MAXB][6], fb[MS_MAXB][6];
-  float f[MS_MAXD], kpe[MS_MAXD], a[MS_MAXD], dtau[MS_MAXD], tmp[MS_MAXD];
-  float vstar[MS_MAXD], u[MS_MAXD];
-  float dist[MS_MAXC], dwork[MS_MAXC], xs[MS_MAXC][3];
-  float act_all[MS_MAXC];
-  float sel_dist[MS_MAXK];
-  float target[MS_MAXROWS], act_n[MS_MAXK], act_l[MS_MAXL];
-  float rowsum[MS_MAXROWS], step[MS_MAXROWS], bvec[MS_MAXROWS];
-  float lam[MS_MAXROWS], upd[MS_MAXROWS];
+  // the state and targets; kpe and dtau stay 0 on the dofs without a motor
+  for (int i = tid; i < rs; i += nt) stbuf[0][i] = st_in[i];
+  for (int i = tid; i < 4 * S; i += nt) tgt_sph[i] = tgt_sph_in[i];
+  for (int i = tid; i < NR; i += nt) tgt_rev[i] = tgt_rev_in[i];
+  for (int i = tid; i < n; i += nt) { kpe[i] = 0.0f; dtau[i] = 0.0f; }
+  BL_SYNC();
 
+  int cur = 0;
   for (int sub = 0; sub < substeps; ++sub) {
+    const float* st = stbuf[cur];
+    float* stn = stbuf[cur ^ 1];
     const float* base_quat = st;
     const float* base_pos = st + 4;
     const float* base_ang = st + 7;
@@ -484,455 +591,543 @@ MS_HD static void megastep_env(const MegaTables& T, const float* st_in,
     const float* q_rev = st + 13 + 7 * S;
     const float* w_rev = st + 13 + 7 * S + NR;
 
-    // ================= FK =================
-    fk_pass(T, q_sph, q_rev, base_quat, base_pos, pw, Rw);
-
-    // ============ generalized velocity ============
+    // ================= FK, world and base frames, level by level =========
+    // H and C are taken in the frame of the base body (origin at the base,
+    // axes along it), from a second FK that starts at the identity; the
+    // TPU kernel takes them about the world origin with world axes. The
+    // result does not depend on the frame, its fp32 rounding does: in the
+    // base frame the base dofs' columns are exact unit vectors, as in the
+    // body-frame CRBA of the plain version, and lever arms do not grow with
+    // the distance walked. Contacts and integration keep the world FK.
     {
-      float wb[3], lb[3];
-      Rtv(Rw[0], base_ang, wb);
-      Rtv(Rw[0], base_lin, lb);
-      for (int i = 0; i < 3; ++i) { v[i] = wb[i]; v[3 + i] = lb[i]; }
-      for (int b = 1; b < nb; ++b) {
-        const int d = T.dof_offset[b];
-        if (T.jtype[b] == 1) {
-          for (int c = 0; c < 3; ++c) v[d + c] = w_sph[3 * T.sph_index[b] + c];
+      const float q0[4] = {0.0f, 0.0f, 0.0f, 1.0f}, p0[3] = {0.0f, 0.0f, 0.0f};
+      for (int lev = 0; lev < levels; ++lev) {
+        const int lo = T.level_off[lev], cnt = T.level_off[lev + 1] - lo;
+        for (int i = tid; i < 2 * cnt; i += nt) {
+          if (i < cnt)
+            fk_body(T, q_sph, q_rev, base_quat, base_pos, T.order[lo + i], qw, pw, Rw);
+          else
+            fk_body(T, q_sph, q_rev, q0, p0, T.order[lo + i - cnt], qb, pb, Rb);
+        }
+        BL_SYNC();
+      }
+    }
+
+    // ====== per dof, per body, per candidate, per motor, per limit row ======
+    {
+      int base = 0;
+      // generalized velocity, Jacobian columns (base frame), world axes
+      for (int d = first_item(tid, nt, base); d < n; d += nt) {
+        const int b = T.dof_body[d];
+        if (d < 6) {
+          const float vd = Rtv_i(Rw[0], d < 3 ? base_ang : base_lin, d % 3);
+          v[d] = vd;
+          vhat[0][d] = vd;        // the base's spatial velocity (base frame)
+          abias[0][d] = 0.0f;
+        } else if (T.jtype[b] == 1) {
+          v[d] = w_sph[3 * T.sph_index[b] + d - T.dof_offset[b]];
         } else {
           v[d] = w_rev[T.rev_index[b]];
         }
-      }
-    }
-
-    // H and C are taken in the frame of the base body (origin at the base,
-    // axes along it), from a second FK pass that starts at the identity;
-    // the TPU kernel takes them about the world origin with world axes.
-    // The result does not depend on the frame, its fp32 rounding does: in
-    // the base frame the base dofs' columns are exact unit vectors, as in
-    // the body-frame CRBA of the plain version, and lever arms do not grow
-    // with the distance walked. Contacts and integration keep the world FK.
-    float Rb[MS_MAXB][9], pb[MS_MAXB][3];
-    {
-      const float q0[4] = {0.0f, 0.0f, 0.0f, 1.0f}, p0[3] = {0.0f, 0.0f, 0.0f};
-      fk_pass(T, q_sph, q_rev, q0, p0, pb, Rb);
-    }
-
-    // ============ Jacobian columns (base frame) and world axes ============
-    for (int d = 0; d < n; ++d) {
-      const int b = T.dof_body[d];
-      float ab[3];
-      Rv(Rw[b], T.dof_axis[d], waxis[d]);
-      Rv(Rb[b], T.dof_axis[d], ab);
-      if (T.dof_is_linear[d]) {
-        for (int i = 0; i < 3; ++i) { col[d][i] = 0.0f; col[d][3 + i] = ab[i]; }
-      } else {
-        float pxa[3];
-        cross3(pb[b], ab, pxa);
-        for (int i = 0; i < 3; ++i) { col[d][i] = ab[i]; col[d][3 + i] = pxa[i]; }
-      }
-    }
-
-    // ============ per-body spatial inertia about the base (base frame) ====
-    // I_O = [[I_cw + m cx cx^T, m cx], [-m cx, m 1]] (ang; lin)
-    for (int b = 0; b < nb; ++b) {
-      const float m = T.mass[b];
-      float cw[3], ri[9], icw[9];
-      Rv(Rb[b], T.com[b], cw);
-      for (int i = 0; i < 3; ++i) cw[i] += pb[b][i];
-      for (int i = 0; i < 3; ++i)
-        for (int j = 0; j < 3; ++j)
-          ri[3 * i + j] = Rb[b][3 * i] * T.inertia_c[b][j]
-                          + Rb[b][3 * i + 1] * T.inertia_c[b][3 + j]
-                          + Rb[b][3 * i + 2] * T.inertia_c[b][6 + j];
-      for (int i = 0; i < 3; ++i)
-        for (int j = 0; j < 3; ++j)
-          icw[3 * i + j] = ri[3 * i] * Rb[b][3 * j] + ri[3 * i + 1] * Rb[b][3 * j + 1]
-                           + ri[3 * i + 2] * Rb[b][3 * j + 2];
-      for (int i = 0; i < 3; ++i) {
-        bcom[b][i] = cw[i];
-        ccom[b][i] = m * cw[i];
-      }
-      for (int k = 0; k < 9; ++k) jc[b][k] = icw[k];
-      const float cx[9] = {0.0f, -cw[2], cw[1], cw[2], 0.0f, -cw[0], -cw[1], cw[0], 0.0f};
-      float* blk = io[b];
-      for (int i = 0; i < 3; ++i)
-        for (int j = 0; j < 3; ++j) {
-          const float cct = cx[3 * i] * cx[3 * j] + cx[3 * i + 1] * cx[3 * j + 1]
-                            + cx[3 * i + 2] * cx[3 * j + 2];
-          blk[6 * i + j] = icw[3 * i + j] + m * cct;
-          blk[6 * i + 3 + j] = m * cx[3 * i + j];
-          blk[6 * (3 + i) + j] = -m * cx[3 * i + j];
-          blk[6 * (3 + i) + 3 + j] = i == j ? m : 0.0f;
+        float ab[3];
+        Rv(Rw[b], T.dof_axis[d], waxis[d]);
+        Rv(Rb[b], T.dof_axis[d], ab);
+        if (T.dof_is_linear[d]) {
+          for (int i = 0; i < 3; ++i) { col[d][i] = 0.0f; col[d][3 + i] = ab[i]; }
+        } else {
+          float pxa[3];
+          cross3(pb[b], ab, pxa);
+          for (int i = 0; i < 3; ++i) { col[d][i] = ab[i]; col[d][3 + i] = pxa[i]; }
         }
+      }
+      base += n;
+      // per-body spatial inertia about the base (base frame),
+      // I_O = [[I_cw + m cx cx^T, m cx], [-m cx, m 1]] (ang; lin), and the
+      // starting terms of the composites
+      for (int b = first_item(tid, nt, base); b < nb; b += nt) {
+        const float m = T.mass[b];
+        float cw[3], ri[9], icw[9];
+        Rv(Rb[b], T.com[b], cw);
+        for (int i = 0; i < 3; ++i) cw[i] += pb[b][i];
+        for (int i = 0; i < 3; ++i)
+          for (int j = 0; j < 3; ++j)
+            ri[3 * i + j] = Rb[b][3 * i] * T.inertia_c[b][j]
+                            + Rb[b][3 * i + 1] * T.inertia_c[b][3 + j]
+                            + Rb[b][3 * i + 2] * T.inertia_c[b][6 + j];
+        for (int i = 0; i < 3; ++i)
+          for (int j = 0; j < 3; ++j)
+            icw[3 * i + j] = ri[3 * i] * Rb[b][3 * j] + ri[3 * i + 1] * Rb[b][3 * j + 1]
+                             + ri[3 * i + 2] * Rb[b][3 * j + 2];
+        for (int i = 0; i < 3; ++i) {
+          bcom[b][i] = cw[i];
+          fm[b][i] = m * cw[i];
+        }
+        for (int k = 0; k < 9; ++k) jc[b][k] = icw[k];
+        const float cx[9] = {0.0f, -cw[2], cw[1], cw[2], 0.0f, -cw[0], -cw[1], cw[0], 0.0f};
+        float* blk = io[b];
+        for (int i = 0; i < 3; ++i)
+          for (int j = 0; j < 3; ++j) {
+            const float cct = cx[3 * i] * cx[3 * j] + cx[3 * i + 1] * cx[3 * j + 1]
+                              + cx[3 * i + 2] * cx[3 * j + 2];
+            blk[6 * i + j] = icw[3 * i + j] + m * cct;
+            blk[6 * i + 3 + j] = m * cx[3 * i + j];
+            blk[6 * (3 + i) + j] = -m * cx[3 * i + j];
+            blk[6 * (3 + i) + 3 + j] = i == j ? m : 0.0f;
+          }
+      }
+      base += nb;
+      // contact candidates. Top-K runs on the distances plus the static
+      // tie-break (c+1)*1e-7, which makes each minimum unique (a level foot
+      // puts four corners at one height). The tie-break only orders the
+      // selection: flags, activity and Baumgarte targets use the true
+      // distance, as sim/contact.py does (the TPU kernel feeds the shifted
+      // distance to them, up to 4e-4 m/s off the reference targets).
+      for (int c = first_item(tid, nt, base); c < nc; c += nt) {
+        const int b = T.cand_body[c];
+        float off[3], xc[3];
+        Rv(Rw[b], T.cand_off[c], off);
+        for (int i = 0; i < 3; ++i) xc[i] = pw[b][i] + off[i];
+        // Jacobian anchor = surface point (centre - radius * up)
+        for (int i = 0; i < 3; ++i) xs[c][i] = i == up ? xc[i] - T.cand_radius[c] : xc[i];
+        dist[c] = xc[up] - T.cand_radius[c];
+        dwork[c] = dist[c] + T.cand_tie[c];
+        act_all[c] = dist[c] < 0.0f ? 1.0f : 0.0f;
+      }
+      base += nc;
+      // SPD errors of the motors: kpe = kp e - kd w
+      for (int mi = first_item(tid, nt, base); mi < n_m; mi += nt) {
+        if (mi < n_sm) {
+          const int d0 = T.sph_motor_dof[mi], s = T.sph_motor_idx[mi];
+          float ex[4], qp[4], qc[4], dq[4], ep[3];
+          qexp_scaled(w_sph + 3 * s, dt, ex);
+          qmul(q_sph + 4 * s, ex, qp);
+          qnormalize(qp);
+          qc[0] = -qp[0]; qc[1] = -qp[1]; qc[2] = -qp[2]; qc[3] = qp[3];
+          qmul(qc, tgt_sph + 4 * s, dq);
+          q_axis_angle(dq, ep);
+          for (int c = 0; c < 3; ++c)
+            kpe[d0 + c] = T.kp[d0 + c] * ep[c] - T.kd[d0 + c] * w_sph[3 * s + c];
+        } else {
+          const int m = mi - n_sm;
+          const int d0 = T.rev_motor_dof[m], rv = T.rev_motor_idx[m];
+          const float pred = q_rev[rv] + w_rev[rv] * dt;
+          kpe[d0] = T.kp[d0] * (tgt_rev[rv] - pred) - T.kd[d0] * w_rev[rv];
+        }
+      }
+      base += n_m;
+      // joint-limit rows: activity and Baumgarte targets
+      for (int li = first_item(tid, nt, base); li < NL; li += nt) {
+        const float viol = T.lim_sign[li] * (T.lim_val[li] - q_rev[T.lim_rev[li]]);
+        act[K + li] = viol > 0.0f ? 1.0f : 0.0f;
+        target[K3 + li] = T.limit_erp_dt * fmaxf(viol, 0.0f);
+      }
     }
+    BL_SYNC();
+
+    // ====== top-K; composites bottom-up beside velocities top-down ======
     // Composite inertias of each subtree in centre-of-mass form: mass mc,
-    // centre of mass ccom and rotational inertia jc about that centre.
-    // The TPU kernel sums 6x6 inertias about one common origin instead;
-    // there a light body far from the origin (a foot, ~1 m from the base)
+    // centre of mass ccom and rotational inertia jc about that centre. The
+    // TPU kernel sums 6x6 inertias about one common origin instead; there a
+    // light body far from the origin (a foot, ~1 m from the base)
     // contributes m |c|^2 ~ 1 to entries whose result is ~5e-3, and fp32
     // cancellation costs the ill-conditioned H (cond ~ 4e4) three digits.
     // Every lever arm below is taken from a subtree's own centre of mass.
-    for (int b = 0; b < nb; ++b) mc[b] = T.mass[b];
-    for (int t = nb - 2; t >= 0; --t) {
-      const int b = T.topo[t], p = T.parent[b];
-      mc[p] += mc[b];
-      for (int i = 0; i < 3; ++i) ccom[p][i] += ccom[b][i];   // first moments
-    }
-    for (int b = 0; b < nb; ++b) {
-      const float inv = 1.0f / fmaxf(mc[b], 1e-12f);
-      float r[3];
-      for (int i = 0; i < 3; ++i) {
-        r[i] = bcom[b][i];
-        ccom[b][i] *= inv;
-        r[i] -= ccom[b][i];
-      }
-      add_parallel_axis(jc[b], T.mass[b], r);
-    }
-    for (int t = nb - 2; t >= 0; --t) {
-      const int b = T.topo[t], p = T.parent[b];
-      float r[3];
-      for (int i = 0; i < 3; ++i) r[i] = ccom[b][i] - ccom[p][i];
-      for (int k = 0; k < 9; ++k) jc[p][k] += jc[b][k];
-      add_parallel_axis(jc[p], mc[b], r);
-    }
-
-    // ============ H on the static ancestor-pair sparsity ============
-    // H[d, e] = col_d . IC_b(e) col_e, both columns about the centre of
-    // mass of the subtree of body(e), where IC is block-diagonal
-    for (size_t i = 0; i < (size_t)n * n; ++i) ws.at(OFF_MINV + i) = 0.0f;
-    for (int e = 0; e < n; ++e) {
-      const int be = T.dof_body[e];
-      float ae[3], le[3], ya[3], yl[3];
-      col_about(T, col, pb, ccom[be], e, ae, le);
-      for (int i = 0; i < 3; ++i) {
-        ya[i] = jc[be][3 * i] * ae[0] + jc[be][3 * i + 1] * ae[1] + jc[be][3 * i + 2] * ae[2];
-        yl[i] = mc[be] * le[i];
-      }
-      for (int d = 0; d <= e; ++d) {
-        if (!((T.anc[be] >> T.dof_body[d]) & 1u)) continue;
-        float ad[3], ld[3];
-        col_about(T, col, pb, ccom[be], d, ad, ld);
-        const float h = ad[0] * ya[0] + ad[1] * ya[1] + ad[2] * ya[2]
-                        + ld[0] * yl[0] + ld[1] * yl[1] + ld[2] * yl[2];
-        ws.at(OFF_MINV + (size_t)d * n + e) = h;
-        if (d != e) ws.at(OFF_MINV + (size_t)e * n + d) = h;
-      }
-    }
-    for (size_t i = 0; i < (size_t)n * n; ++i) {
-      ws.at(OFF_HINV + i) = ws.at(OFF_MINV + i);
-      ws.at(OFF_H + i) = ws.at(OFF_MINV + i);
-    }
-
-    // ============ C: fixed-frame bias recursion ============
-    // base spatial velocity in the base frame: the body-frame (omega, v)
-    float grav[3];
-    Rtv(Rw[0], T.gravity, grav);
-    for (int i = 0; i < 6; ++i) {
-      vhat[0][i] = v[i];
-      abias[0][i] = 0.0f;
-    }
-    for (int t = 0; t < nb - 1; ++t) {
-      const int b = T.topo[t], p = T.parent[b];
-      const int d = T.dof_offset[b];
-      float add[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
-      for (int c = 0; c < T.dof_count[b]; ++c)
-        for (int r = 0; r < 6; ++r) add[r] += col[d + c][r] * v[d + c];
-      for (int r = 0; r < 6; ++r) vhat[b][r] = vhat[p][r] + add[r];
-    }
-    for (int t = 0; t < nb - 1; ++t) {
-      const int b = T.topo[t], p = T.parent[b];
-      float dvj[6], cr[6];
-      for (int r = 0; r < 6; ++r) dvj[r] = vhat[b][r] - vhat[p][r];
-      crm6(vhat[b], dvj, cr);
-      for (int r = 0; r < 6; ++r) abias[b][r] = abias[p][r] + cr[r];
-    }
-    for (int b = 0; b < nb; ++b) {
-      float av[6], iav[6], iv[6], cf[6];
-      for (int r = 0; r < 6; ++r)
-        av[r] = abias[b][r] - (r < 3 ? 0.0f : grav[r - 3]);
-      for (int r = 0; r < 6; ++r) {
-        float s1 = io[b][6 * r] * av[0], s2 = io[b][6 * r] * vhat[b][0];
-        for (int c = 1; c < 6; ++c) {
-          s1 += io[b][6 * r + c] * av[c];
-          s2 += io[b][6 * r + c] * vhat[b][c];
-        }
-        iav[r] = s1;
-        iv[r] = s2;
-      }
-      crf6(vhat[b], iv, cf);
-      for (int r = 0; r < 6; ++r) fb[b][r] = iav[r] + cf[r];
-    }
-    for (int t = nb - 2; t >= 0; --t) {
-      const int b = T.topo[t], p = T.parent[b];
-      for (int r = 0; r < 6; ++r) fb[p][r] += fb[b][r];
-    }
-
-    // ============ SPD errors -> f = kpe - C ============
-    for (int d = 0; d < n; ++d) {
-      const float* fbd = fb[T.dof_body[d]];
-      float c = col[d][0] * fbd[0];
-      for (int r = 1; r < 6; ++r) c += col[d][r] * fbd[r];
-      f[d] = -c;
-      kpe[d] = 0.0f;
-    }
-    for (int mi = 0; mi < T.n_sph_motors; ++mi) {
-      const int d0 = T.sph_motor_dof[mi], s = T.sph_motor_idx[mi];
-      float ex[4], qp[4], qc[4], dq[4], ep[3];
-      qexp_scaled(w_sph + 3 * s, dt, ex);
-      qmul(q_sph + 4 * s, ex, qp);
-      qnormalize(qp);
-      qc[0] = -qp[0]; qc[1] = -qp[1]; qc[2] = -qp[2]; qc[3] = qp[3];
-      qmul(qc, tgt_sph + 4 * s, dq);
-      q_axis_angle(dq, ep);
-      for (int c = 0; c < 3; ++c) {
-        const float k = T.kp[d0 + c] * ep[c] - T.kd[d0 + c] * w_sph[3 * s + c];
-        kpe[d0 + c] = k;
-        f[d0 + c] += k;
-      }
-    }
-    for (int mi = 0; mi < T.n_rev_motors; ++mi) {
-      const int d0 = T.rev_motor_dof[mi], r = T.rev_motor_idx[mi];
-      const float pred = q_rev[r] + w_rev[r] * dt;
-      const float k = T.kp[d0] * (tgt_rev[r] - pred) - T.kd[d0] * w_rev[r];
-      kpe[d0] = k;
-      f[d0] += k;
-    }
-
-    // ============ inverses ============
-    for (int i = 0; i < n; ++i) {
-      ws.at(OFF_MINV + (size_t)i * n + i) += T.minv_diag[i];
-      ws.at(OFF_HINV + (size_t)i * n + i) += T.eps;
-    }
-    gj_sweep(ws, OFF_MINV, n);
-    gj_sweep(ws, OFF_HINV, n);
-    // each solve through an explicit inverse gets one refinement step
-    // against the kept H (the TPU kernel has none): the clamp correction
-    // goes through cond(H) ~ 4e4, and this halves its fp32 error
-    ws_matvec(ws, OFF_MINV, n, f, a);
-    refine(ws, OFF_MINV, OFF_H, n, T.minv_diag, 0.0f, f, a);
-
-    // torque-clamp correction
-    for (int d = 0; d < n; ++d) dtau[d] = 0.0f;
-    for (int mi = 0; mi < T.n_sph_motors; ++mi) {
-      const int d0 = T.sph_motor_dof[mi];
-      const float lim = T.sph_motor_lim[mi];
-      float t3[3];
-      for (int c = 0; c < 3; ++c) t3[c] = kpe[d0 + c] - T.kd_dt[d0 + c] * a[d0 + c];
-      const float nrm = sqrtf(t3[0] * t3[0] + t3[1] * t3[1] + t3[2] * t3[2]);
-      const float scale = nrm > lim ? lim / fmaxf(nrm, 1e-9f) : 1.0f;
-      for (int c = 0; c < 3; ++c) dtau[d0 + c] = t3[c] * (scale - 1.0f);
-    }
-    for (int mi = 0; mi < T.n_rev_motors; ++mi) {
-      const int d0 = T.rev_motor_dof[mi];
-      const float lim = T.rev_motor_lim[mi];
-      const float t1 = kpe[d0] - T.kd_dt[d0] * a[d0];
-      dtau[d0] = fminf(fmaxf(t1, -lim), lim) - t1;
-    }
-    ws_matvec(ws, OFF_HINV, n, dtau, tmp);
-    refine(ws, OFF_HINV, OFF_H, n, nullptr, T.eps, dtau, tmp);
-    for (int d = 0; d < n; ++d) vstar[d] = v[d] + dt * (a[d] + tmp[d]);
-
-    // ============ contacts: candidates + top-K ============
-    // top-K by iterative argmin over the distances plus the static
-    // tie-break (c+1)*1e-7, which makes each minimum unique (a level foot
-    // puts four corners at one height). The tie-break only orders the
-    // selection: flags, activity and Baumgarte targets use the true
-    // distance, as sim/contact.py does (the TPU kernel feeds the shifted
-    // distance to them, up to 4e-4 m/s off the reference targets).
-    for (int c = 0; c < T.n_cand; ++c) {
-      const int b = T.cand_body[c];
-      float off[3], xc[3];
-      Rv(Rw[b], T.cand_off[c], off);
-      for (int i = 0; i < 3; ++i) xc[i] = pw[b][i] + off[i];
-      // Jacobian anchor = surface point (centre - radius * up)
-      for (int i = 0; i < 3; ++i) xs[c][i] = i == up ? xc[i] - T.cand_radius[c] : xc[i];
-      dist[c] = xc[up] - T.cand_radius[c];
-      dwork[c] = dist[c] + T.cand_tie[c];
-      act_all[c] = dist[c] < 0.0f ? 1.0f : 0.0f;
-    }
-    for (int j = 0; j < K; ++j) {
-      int sel = 0;
-      for (int c = 1; c < T.n_cand; ++c)
-        if (dwork[c] < dwork[sel]) sel = c;
-      dwork[sel] = 1e30f;
-      sel_dist[j] = dist[sel];
-      const float* sx = xs[sel];
-      const unsigned int anc = T.anc[T.cand_body[sel]];
-      for (int d = 0; d < n; ++d) {
-        float jr[3] = {0.0f, 0.0f, 0.0f};
-        if ((anc >> T.dof_body[d]) & 1u) {
-          if (T.dof_is_linear[d]) {
-            for (int i = 0; i < 3; ++i) jr[i] = waxis[d][i];
-          } else {
-            const float* ap = pw[T.dof_body[d]];
-            const float diff[3] = {sx[0] - ap[0], sx[1] - ap[1], sx[2] - ap[2]};
-            cross3(waxis[d], diff, jr);
+    // A body gathers its children's finished sums (last in `order` first,
+    // the order in which the one-thread version added them).
+    for (int s = 0; s < levels; ++s) {
+      int base = 0;
+      if (s == 0) {
+#ifdef __CUDA_ARCH__
+        // 16 argmins over (keyed distance, index) by the first warp: lane l
+        // holds candidates l and l + 32
+        if (tid < 32) {
+          const int lane = tid;
+          float d0 = lane < nc ? dwork[lane] : INFINITY;
+          float d1 = lane + 32 < nc ? dwork[lane + 32] : INFINITY;
+          for (int j = 0; j < K; ++j) {
+            float bd = d0;
+            int bi = lane;
+            if (d1 < d0) { bd = d1; bi = lane + 32; }
+            for (int o = 16; o > 0; o >>= 1) {
+              const float od = __shfl_xor_sync(0xffffffffu, bd, o);
+              const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
+              if (od < bd || (od == bd && oi < bi)) { bd = od; bi = oi; }
+            }
+            if (bi == lane) d0 = 1e30f;
+            else if (bi == lane + 32) d1 = 1e30f;
+            if (lane == 0) {
+              sel[j] = bi;
+              sel_dist[j] = dist[bi];
+            }
           }
         }
-        ws.at(OFF_ROWS + (size_t)j * n + d) = jr[up];
-        ws.at(OFF_ROWS + (size_t)(K + j) * n + d) = jr[t1x];
-        ws.at(OFF_ROWS + (size_t)(2 * K + j) * n + d) = jr[t2x];
+#else
+        if (tid == 0) {
+          for (int j = 0; j < K; ++j) {
+            int sj = 0;
+            for (int c = 1; c < nc; ++c)
+              if (dwork[c] < dwork[sj]) sj = c;
+            dwork[sj] = 1e30f;
+            sel[j] = sj;
+            sel_dist[j] = dist[sj];
+          }
+        }
+#endif
       }
+      {
+        const int lev = levels - 1 - s;
+        const int lo = T.level_off[lev], cnt = T.level_off[lev + 1] - lo;
+        for (int i = first_item(tid, nt, base); i < cnt; i += nt) {
+          const int p = T.order[lo + i];
+          float m = T.mass[p];
+          for (int k = T.child_off[p]; k < T.child_off[p + 1]; ++k) {
+            const int c = T.child[k];
+            m += mc[c];
+            for (int q = 0; q < 3; ++q) fm[p][q] += fm[c][q];   // first moments
+          }
+          mc[p] = m;
+          const float inv = 1.0f / fmaxf(m, 1e-12f);
+          float rr[3];
+          for (int q = 0; q < 3; ++q) {
+            ccom[p][q] = fm[p][q] * inv;
+            rr[q] = bcom[p][q] - ccom[p][q];
+          }
+          add_parallel_axis(jc[p], T.mass[p], rr);
+          for (int k = T.child_off[p]; k < T.child_off[p + 1]; ++k) {
+            const int c = T.child[k];
+            for (int q = 0; q < 3; ++q) rr[q] = ccom[c][q] - ccom[p][q];
+            for (int q = 0; q < 9; ++q) jc[p][q] += jc[c][q];
+            add_parallel_axis(jc[p], mc[c], rr);
+          }
+        }
+        base += cnt;
+      }
+      if (s + 1 < levels) {
+        // C: fixed-frame bias recursion, velocities and bias accelerations
+        const int lo = T.level_off[s + 1], cnt = T.level_off[s + 2] - lo;
+        for (int i = first_item(tid, nt, base); i < cnt; i += nt) {
+          const int b = T.order[lo + i], p = T.parent[b], d = T.dof_offset[b];
+          float add[6] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
+          for (int c = 0; c < T.dof_count[b]; ++c)
+            for (int q = 0; q < 6; ++q) add[q] += col[d + c][q] * v[d + c];
+          for (int q = 0; q < 6; ++q) vhat[b][q] = vhat[p][q] + add[q];
+          float dvj[6], cr[6];
+          for (int q = 0; q < 6; ++q) dvj[q] = vhat[b][q] - vhat[p][q];
+          crm6(vhat[b], dvj, cr);
+          for (int q = 0; q < 6; ++q) abias[b][q] = abias[p][q] + cr[q];
+        }
+      }
+      BL_SYNC();
     }
 
-    // targets / activity
-    for (int j = 0; j < K; ++j) {
-      const float pen = fmaxf(-sel_dist[j] - T.slop, 0.0f);
-      target[j] = T.erp_dt * pen;
-      act_n[j] = sel_dist[j] < 0.0f ? 1.0f : 0.0f;
-      target[K + j] = 0.0f;
-      target[2 * K + j] = 0.0f;
-    }
-    for (int li = 0; li < T.n_lim; ++li) {
-      const float viol = T.lim_sign[li] * (T.lim_val[li] - q_rev[T.lim_rev[li]]);
-      act_l[li] = viol > 0.0f ? 1.0f : 0.0f;
-      target[K3 + li] = T.limit_erp_dt * fmaxf(viol, 0.0f);
+    // ====== bias forces bottom-up; H; contact rows and targets ======
+    for (int s = 0; s < levels; ++s) {
+      int base = 0;
+      {
+        const int lev = levels - 1 - s;
+        const int lo = T.level_off[lev], cnt = T.level_off[lev + 1] - lo;
+        for (int i = first_item(tid, nt, base); i < cnt; i += nt) {
+          const int b = T.order[lo + i];
+          float grav[3], av[6], iav[6], iv[6], cf[6];
+          for (int q = 0; q < 3; ++q) grav[q] = Rtv_i(Rw[0], T.gravity, q);
+          for (int q = 0; q < 6; ++q) av[q] = abias[b][q] - (q < 3 ? 0.0f : grav[q - 3]);
+          for (int q = 0; q < 6; ++q) {
+            float s1 = io[b][6 * q] * av[0], s2 = io[b][6 * q] * vhat[b][0];
+            for (int c = 1; c < 6; ++c) {
+              s1 += io[b][6 * q + c] * av[c];
+              s2 += io[b][6 * q + c] * vhat[b][c];
+            }
+            iav[q] = s1;
+            iv[q] = s2;
+          }
+          crf6(vhat[b], iv, cf);
+          float acc6[6];
+          for (int q = 0; q < 6; ++q) acc6[q] = iav[q] + cf[q];
+          for (int k = T.child_off[b]; k < T.child_off[b + 1]; ++k)
+            for (int q = 0; q < 6; ++q) acc6[q] += fb[T.child[k]][q];
+          for (int q = 0; q < 6; ++q) fb[b][q] = acc6[q];
+        }
+        base += cnt;
+      }
+      if (s == 0) {
+        // H on the static ancestor-pair sparsity, one thread per element of
+        // the upper triangle: H[d, e] = col_d . IC_b(e) col_e, both columns
+        // about the centre of mass of the subtree of body(e), where IC is
+        // block-diagonal; written into H and both matrices to invert
+        const int cnt = n * (n + 1) / 2;
+        int e = 0, d = first_item(tid, nt, base);
+        while (d > e) { d -= e + 1; ++e; }   // item -> (d <= e), by columns
+        for (int i = first_item(tid, nt, base); i < cnt; i += nt) {
+          const int be = T.dof_body[e];
+          float h = 0.0f;
+          if ((T.anc[be] >> T.dof_body[d]) & 1u) {
+            float ae[3], le[3], ya[3], yl[3], ad[3], ld[3];
+            col_about(T, col, pb, ccom[be], e, ae, le);
+            for (int q = 0; q < 3; ++q) {
+              ya[q] = jc[be][3 * q] * ae[0] + jc[be][3 * q + 1] * ae[1] + jc[be][3 * q + 2] * ae[2];
+              yl[q] = mc[be] * le[q];
+            }
+            col_about(T, col, pb, ccom[be], d, ad, ld);
+            h = ad[0] * ya[0] + ad[1] * ya[1] + ad[2] * ya[2]
+                + ld[0] * yl[0] + ld[1] * yl[1] + ld[2] * yl[2];
+          }
+          H[d * n + e] = h;
+          H[e * n + d] = h;
+          Minv[d * n + e] = d == e ? h + T.minv_diag[d] : h;
+          Minv[e * n + d] = d == e ? h + T.minv_diag[d] : h;
+          Hinv[d * n + e] = d == e ? h + T.eps : h;
+          Hinv[e * n + d] = d == e ? h + T.eps : h;
+          d += nt;
+          while (d > e) { d -= e + 1; ++e; }
+        }
+        base += cnt;
+      }
+      if (s == (levels > 1 ? 1 : 0)) {
+        // contact rows of the selected points, world frame: the normal
+        // (up) rows, then the two tangents, one thread per (contact, dof)
+        for (int i = first_item(tid, nt, base); i < K * n; i += nt) {
+          const int j = i / n, d = i - j * n;
+          const int sj = sel[j];
+          const float* sx = xs[sj];
+          const unsigned int anc = T.anc[T.cand_body[sj]];
+          float jr[3] = {0.0f, 0.0f, 0.0f};
+          if ((anc >> T.dof_body[d]) & 1u) {
+            if (T.dof_is_linear[d]) {
+              for (int q = 0; q < 3; ++q) jr[q] = waxis[d][q];
+            } else {
+              const float* ap = pw[T.dof_body[d]];
+              const float diff[3] = {sx[0] - ap[0], sx[1] - ap[1], sx[2] - ap[2]};
+              cross3(waxis[d], diff, jr);
+            }
+          }
+          rows[j * ldr + d] = jr[up];
+          rows[(K + j) * ldr + d] = jr[t1x];
+          rows[(2 * K + j) * ldr + d] = jr[t2x];
+        }
+        base += K * n;
+        for (int j = first_item(tid, nt, base); j < K; j += nt) {
+          const float pen = fmaxf(-sel_dist[j] - T.slop, 0.0f);
+          target[j] = T.erp_dt * pen;
+          act[j] = sel_dist[j] < 0.0f ? 1.0f : 0.0f;
+          target[K + j] = 0.0f;
+          target[2 * K + j] = 0.0f;
+        }
+      }
+      BL_SYNC();
     }
 
-    // ============ W = Hinv J^T ; rowsum(|A|) ; projected Jacobi ============
-    for (int k = 0; k < n; ++k) {
-      for (int jj = 0; jj < K3; ++jj) {
-        float acc = ws.at(OFF_HINV + (size_t)k * n) * ws.at(OFF_ROWS + (size_t)jj * n);
-        for (int kk = 1; kk < n; ++kk)
-          acc += ws.at(OFF_HINV + (size_t)k * n + kk) * ws.at(OFF_ROWS + (size_t)jj * n + kk);
-        ws.at(OFF_W + (size_t)k * R + jj) = acc;
-      }
-      for (int li = 0; li < T.n_lim; ++li)
-        ws.at(OFF_W + (size_t)k * R + K3 + li) =
-            T.lim_sign[li] * ws.at(OFF_HINV + (size_t)k * n + T.lim_dof[li]);
+    // ============ f = kpe - C; the two inverses ============
+    for (int d = tid; d < n; d += nt) {
+      f[d] = -dot_in_order(col[d], 1, fb[T.dof_body[d]], 1, 6) + kpe[d];
     }
-    // contact block of A = J W on the upper triangle, mirrored into the
-    // row sums (A is symmetric); it steers the step only
-    for (int i = 0; i < R; ++i) rowsum[i] = 0.0f;
-    for (int i = 0; i < K3; ++i) {
-      for (int j = i; j < K3; ++j) {
-        float acc = ws.at(OFF_ROWS + (size_t)i * n) * ws.at(OFF_W + j);
-        for (int kk = 1; kk < n; ++kk)
-          acc += ws.at(OFF_ROWS + (size_t)i * n + kk) * ws.at(OFF_W + (size_t)kk * R + j);
-        const float aa = fabsf(acc);
-        rowsum[i] += aa;
-        if (j != i) rowsum[j] += aa;
+    // (the sweep's first barrier orders f before its readers)
+    gj_sweep_pair(Hinv, n, sm.gj, tid, nt);
+
+    // ====== a = Minv f, refined; W = Hinv J^T beside it ======
+    // Each solve through an explicit inverse gets one refinement step
+    // against the kept H (the TPU kernel has none): the clamp correction
+    // goes through cond(H) ~ 4e4, and this halves its fp32 error.
+    {
+      int base = 0;
+      for (int i = first_item(tid, nt, base); i < n; i += nt)
+        a[i] = dot_in_order(Minv + i * n, 1, f, 1, n);
+      base += n;
+      // W[k, j], W[k, K + j], W[k, 2K + j] for one (dof, contact)
+      for (int i = first_item(tid, nt, base); i < n * K; i += nt) {
+        const int k = i / K, j = i - k * K;
+        float s0, s1, s2;   // locals: sums kept in W itself would be stored every term
+        dot3_in_order(rows + j * ldr, rows + (K + j) * ldr, rows + (2 * K + j) * ldr,
+                      Hinv + k * n, n, s0, s1, s2);
+        W[k * ldw + j] = s0;
+        W[k * ldw + K + j] = s1;
+        W[k * ldw + 2 * K + j] = s2;
+      }
+      base += n * K;
+      for (int i = first_item(tid, nt, base); i < n * NL; i += nt) {
+        const int k = i / NL, li = i - k * NL;
+        W[k * ldw + K3 + li] = T.lim_sign[li] * Hinv[k * n + T.lim_dof[li]];
       }
     }
-    for (int li = 0; li < T.n_lim; ++li) {
-      const size_t wrow = OFF_W + (size_t)T.lim_dof[li] * R;
-      // A[i, 3K+li] = sign * W[dof_li, i] (Hinv symmetric)
-      for (int i = 0; i < K3; ++i) rowsum[i] += fabsf(ws.at(wrow + i));
-      // limit row: A[3K+li, :] = sign * W[dof_li, :]
+    BL_SYNC();
+    for (int i = tid; i < n; i += nt)
+      r[i] = f[i] - (dot_in_order(H + i * n, 1, a, 1, n) + T.minv_diag[i] * a[i]);
+    BL_SYNC();
+    for (int i = tid; i < n; i += nt) a[i] += dot_in_order(Minv + i * n, 1, r, 1, n);
+    BL_SYNC();
+
+    // torque-clamp correction on the motor dofs
+    for (int mi = tid; mi < n_m; mi += nt) {
+      if (mi < n_sm) {
+        const int d0 = T.sph_motor_dof[mi];
+        const float lim = T.sph_motor_lim[mi];
+        float t3[3];
+        for (int c = 0; c < 3; ++c) t3[c] = kpe[d0 + c] - T.kd_dt[d0 + c] * a[d0 + c];
+        const float nrm = sqrtf(t3[0] * t3[0] + t3[1] * t3[1] + t3[2] * t3[2]);
+        const float scale = nrm > lim ? lim / fmaxf(nrm, 1e-9f) : 1.0f;
+        for (int c = 0; c < 3; ++c) dtau[d0 + c] = t3[c] * (scale - 1.0f);
+      } else {
+        const int m = mi - n_sm;
+        const int d0 = T.rev_motor_dof[m];
+        const float lim = T.rev_motor_lim[m];
+        const float t1 = kpe[d0] - T.kd_dt[d0] * a[d0];
+        dtau[d0] = fminf(fmaxf(t1, -lim), lim) - t1;
+      }
+    }
+    BL_SYNC();
+    for (int i = tid; i < n; i += nt) tmp[i] = dot_in_order(Hinv + i * n, 1, dtau, 1, n);
+    BL_SYNC();
+    for (int i = tid; i < n; i += nt)
+      r[i] = dtau[i] - (dot_in_order(H + i * n, 1, tmp, 1, n) + T.eps * tmp[i]);
+    BL_SYNC();
+    for (int i = tid; i < n; i += nt) {
+      tmp[i] += dot_in_order(Hinv + i * n, 1, r, 1, n);
+      vstar[i] = v[i] + dt * (a[i] + tmp[i]);
+    }
+    BL_SYNC();
+
+    // ====== |A| on the upper triangle; b = J v* - target ======
+    // the contact block of A = J W on the upper triangle (A is symmetric;
+    // it steers the step only), in the space of Minv and H
+    {
+      int base = 0;
+      const int cnt = K3 * (K3 + 1) / 2;
+      int jj = 0, ii = first_item(tid, nt, base);
+      while (ii > jj) { ii -= jj + 1; ++jj; }   // item -> (ii <= jj)
+      for (int i = first_item(tid, nt, base); i < cnt; i += nt) {
+        A[ii * K3 + jj] = fabsf(dot_in_order(rows + ii * ldr, 1, W + jj, ldw, n));
+        ii += nt;
+        while (ii > jj) { ii -= jj + 1; ++jj; }
+      }
+      base += cnt;
+      for (int i = first_item(tid, nt, base); i < K3; i += nt) {
+        bvec[i] = dot_in_order(rows + i * ldr, 1, vstar, 1, n) - target[i];
+        lam[i] = 0.0f;
+      }
+      base += K3;
+      for (int li = first_item(tid, nt, base); li < NL; li += nt) {
+        bvec[K3 + li] = T.lim_sign[li] * vstar[T.lim_dof[li]] - target[K3 + li];
+        lam[K3 + li] = 0.0f;
+      }
+    }
+    BL_SYNC();
+    // Gershgorin row sums -> Jacobi steps, one thread per row, summed in
+    // the order the one-thread version accumulated them
+    for (int i = tid; i < R; i += nt) {
       float s = 0.0f;
-      for (int j = 0; j < R; ++j) s += fabsf(ws.at(wrow + j));
-      rowsum[K3 + li] = s;
+      if (i < K3) {
+        for (int j = 0; j < i; ++j) s += A[j * K3 + i];
+        for (int j = i; j < K3; ++j) s += A[i * K3 + j];
+        // A[i, 3K+li] = sign * W[dof_li, i] (Hinv symmetric)
+        for (int li = 0; li < NL; ++li) s += fabsf(W[T.lim_dof[li] * ldw + i]);
+      } else {
+        // limit row: A[3K+li, :] = sign * W[dof_li, :]
+        const float* wrow = W + T.lim_dof[i - K3] * ldw;
+        for (int j = 0; j < R; ++j) s += fabsf(wrow[j]);
+      }
+      step[i] = T.relaxation / fmaxf(s + T.cfm, 1e-9f);
     }
-    for (int i = 0; i < R; ++i)
-      step[i] = T.relaxation / fmaxf(rowsum[i] + T.cfm, 1e-9f);
+    BL_SYNC();
 
-    for (int i = 0; i < K3; ++i) {
-      float acc = ws.at(OFF_ROWS + (size_t)i * n) * vstar[0];
-      for (int kk = 1; kk < n; ++kk) acc += ws.at(OFF_ROWS + (size_t)i * n + kk) * vstar[kk];
-      bvec[i] = acc - target[i];
-    }
-    for (int li = 0; li < T.n_lim; ++li)
-      bvec[K3 + li] = T.lim_sign[li] * vstar[T.lim_dof[li]] - target[K3 + li];
-
-    for (int i = 0; i < R; ++i) lam[i] = 0.0f;
+    // ============ projected Jacobi in W-form ============
     for (int it = 0; it < T.iterations; ++it) {
-      for (int k = 0; k < n; ++k) {
-        float acc = ws.at(OFF_W + (size_t)k * R) * lam[0];
-        for (int j = 1; j < R; ++j) acc += ws.at(OFF_W + (size_t)k * R + j) * lam[j];
-        u[k] = acc;
+      for (int k = tid; k < n; k += nt) u[k] = dot_in_order(W + k * ldw, 1, lam, 1, R);
+      BL_SYNC();
+      for (int i = tid; i < K + NL; i += nt) {
+        if (i < K) {
+          const int j = i;
+          float s0, s1, s2;
+          dot3_in_order(rows + j * ldr, rows + (K + j) * ldr, rows + (2 * K + j) * ldr, u,
+                        n, s0, s1, s2);
+          const float upd0 = lam[j] - step[j] * (s0 + bvec[j]);
+          const float upd1 = lam[K + j] - step[K + j] * (s1 + bvec[K + j]);
+          const float upd2 = lam[2 * K + j] - step[2 * K + j] * (s2 + bvec[2 * K + j]);
+          const float ln = fmaxf(upd0, 0.0f) * act[j];
+          const float bound = T.mu * ln;
+          lam[j] = ln;
+          lam[K + j] = fminf(fmaxf(upd1, -bound), bound) * act[j];
+          lam[2 * K + j] = fminf(fmaxf(upd2, -bound), bound) * act[j];
+        } else {
+          const int li = i - K, row = K3 + li;
+          const float upd = lam[row] - step[row] * (T.lim_sign[li] * u[T.lim_dof[li]] + bvec[row]);
+          lam[row] = fmaxf(upd, 0.0f) * act[K + li];
+        }
       }
-      for (int i = 0; i < K3; ++i) {
-        float acc = ws.at(OFF_ROWS + (size_t)i * n) * u[0];
-        for (int kk = 1; kk < n; ++kk) acc += ws.at(OFF_ROWS + (size_t)i * n + kk) * u[kk];
-        upd[i] = lam[i] - step[i] * (acc + bvec[i]);
-      }
-      for (int li = 0; li < T.n_lim; ++li) {
-        const int i = K3 + li;
-        upd[i] = lam[i] - step[i] * (T.lim_sign[li] * u[T.lim_dof[li]] + bvec[i]);
-      }
-      for (int j = 0; j < K; ++j) {
-        const float ln = fmaxf(upd[j], 0.0f) * act_n[j];
-        const float bound = T.mu * ln;
-        lam[j] = ln;
-        lam[K + j] = fminf(fmaxf(upd[K + j], -bound), bound) * act_n[j];
-        lam[2 * K + j] = fminf(fmaxf(upd[2 * K + j], -bound), bound) * act_n[j];
-      }
-      for (int li = 0; li < T.n_lim; ++li)
-        lam[K3 + li] = fmaxf(upd[K3 + li], 0.0f) * act_l[li];
+      BL_SYNC();
     }
     // v_new = clip(v* + W lam, +-100), kept in `u`
-    for (int k = 0; k < n; ++k) {
-      float acc = ws.at(OFF_W + (size_t)k * R) * lam[0];
-      for (int j = 1; j < R; ++j) acc += ws.at(OFF_W + (size_t)k * R + j) * lam[j];
-      u[k] = fminf(fmaxf(vstar[k] + acc, -100.0f), 100.0f);
-    }
+    for (int k = tid; k < n; k += nt)
+      u[k] = fminf(fmaxf(vstar[k] + dot_in_order(W + k * ldw, 1, lam, 1, R), -100.0f), 100.0f);
+    BL_SYNC();
 
     // ============ integrate (dynamics.advance semantics) ============
-    {
-      float dpos[3], ex[4], nq[4], R0n[9], na[3], nl[3];
-      Rv(Rw[0], u + 3, dpos);
-      qexp_scaled(u, dt, ex);
-      qmul(base_quat, ex, nq);
-      qnormalize(nq);
-      q2R(nq, R0n);
-      Rv(R0n, u, na);
-      Rv(R0n, u + 3, nl);
-      float new_pos[3];
-      for (int i = 0; i < 3; ++i) new_pos[i] = base_pos[i] + dt * dpos[i];
-      float qs_new[MS_MAXS * 4];
-      for (int s = 0; s < S; ++s) {
+    // one thread for the base, one per joint; the new state goes into the
+    // other state buffer
+    for (int i = tid; i < 1 + S + NR; i += nt) {
+      if (i == 0) {
+        float dpos[3], ex[4], nq[4], R0n[9], na[3], nl[3];
+        Rv(Rw[0], u + 3, dpos);
+        qexp_scaled(u, dt, ex);
+        qmul(base_quat, ex, nq);
+        qnormalize(nq);
+        q2R(nq, R0n);
+        Rv(R0n, u, na);
+        Rv(R0n, u + 3, nl);
+        for (int q = 0; q < 4; ++q) stn[q] = nq[q];
+        for (int q = 0; q < 3; ++q) {
+          const float np = base_pos[q] + dt * dpos[q];
+          stn[4 + q] = np;
+          stn[7 + q] = na[q];
+          stn[10 + q] = nl[q];
+          hist_out[3 * sub + q] = np;
+        }
+      } else if (i <= S) {
+        const int s = i - 1;
         const int d = T.dof_offset[T.sph_body[s]];
-        float exs[4];
+        float exs[4], qn[4];
         qexp_scaled(u + d, dt, exs);
-        qmul(q_sph + 4 * s, exs, qs_new + 4 * s);
-        qnormalize(qs_new + 4 * s);
-      }
-      float qr_new[MS_MAXR], wr_new[MS_MAXR];
-      for (int r = 0; r < NR; ++r) {
-        const int d = T.dof_offset[T.rev_body[r]];
-        wr_new[r] = u[d];
-        float q = q_rev[r] + dt * u[d];
-        if (T.rev_has_limit[r]) q = fminf(fmaxf(q, T.rev_lo[r]), T.rev_hi[r]);
-        qr_new[r] = q;
-      }
-      // write the new state in place (all reads of the old state are done)
-      for (int i = 0; i < 4; ++i) st[i] = nq[i];
-      for (int i = 0; i < 3; ++i) {
-        st[4 + i] = new_pos[i];
-        st[7 + i] = na[i];
-        st[10 + i] = nl[i];
-        hist_out[3 * sub + i] = new_pos[i];
-      }
-      for (int s = 0; s < S; ++s) {
-        const int d = T.dof_offset[T.sph_body[s]];
-        for (int c = 0; c < 4; ++c) st[13 + 4 * s + c] = qs_new[4 * s + c];
-        for (int c = 0; c < 3; ++c) st[13 + 4 * S + 3 * s + c] = u[d + c];
-      }
-      for (int r = 0; r < NR; ++r) {
-        st[13 + 7 * S + r] = qr_new[r];
-        st[13 + 7 * S + NR + r] = wr_new[r];
+        qmul(q_sph + 4 * s, exs, qn);
+        qnormalize(qn);
+        for (int c = 0; c < 4; ++c) stn[13 + 4 * s + c] = qn[c];
+        for (int c = 0; c < 3; ++c) stn[13 + 4 * S + 3 * s + c] = u[d + c];
+      } else {
+        const int rv = i - 1 - S;
+        const int d = T.dof_offset[T.rev_body[rv]];
+        float q = q_rev[rv] + dt * u[d];
+        if (T.rev_has_limit[rv]) q = fminf(fmaxf(q, T.rev_lo[rv]), T.rev_hi[rv]);
+        stn[13 + 7 * S + rv] = q;
+        stn[13 + 7 * S + NR + rv] = u[d];
       }
     }
+    BL_SYNC();
+    cur ^= 1;
   }
-  for (int i = 0; i < rows_state; ++i) st_out[i] = st[i];
-  for (int c = 0; c < T.n_cand; ++c) act_out[c] = act_all[c];
-  if constexpr (EMIT_LINKS) link_epilogue(T, st, links_out);
+
+  const float* st = stbuf[cur];
+  for (int i = tid; i < rs; i += nt) st_out[i] = st[i];
+  for (int c = tid; c < nc; c += nt) act_out[c] = act_all[c];
+  if constexpr (EMIT_LINKS) link_epilogue(T, st, qw, pw, Rw, vhat, links_out, tid, nt);
 }
 
 // ---- entry points -----------------------------------------------------------
 
+// dynamic shared memory of one block (bytes)
+static int ms_shared_bytes(const MegaTables& T) {
+  return (int)(sizeof(float) * (size_t)ms_layout(T).total);
+}
+
 #ifdef __CUDACC__
 
+// One block per env; the workspace is the dynamic shared memory.
 template <bool EMIT_LINKS>
-__global__ void megastep_kernel(const MegaTables* __restrict__ tables,
-                                const float* __restrict__ st,
-                                const float* __restrict__ tgt_sph,
-                                const float* __restrict__ tgt_rev,
-                                float* __restrict__ st_out,
-                                float* __restrict__ act_out,
-                                float* __restrict__ hist_out,
-                                float* __restrict__ links_out,
-                                float* __restrict__ ws, int B, int substeps) {
+__global__ void __launch_bounds__(MS_MAX_THREADS, 2)
+megastep_kernel(const MegaTables* __restrict__ tables, const float* __restrict__ st,
+                const float* __restrict__ tgt_sph, const float* __restrict__ tgt_rev,
+                float* __restrict__ st_out, float* __restrict__ act_out,
+                float* __restrict__ hist_out, float* __restrict__ links_out,
+                int substeps) {
   __shared__ MegaTables T;
+  __shared__ MsSmall sm;
+  extern __shared__ float ms_shared[];
   {
     const int* src = reinterpret_cast<const int*>(tables);
     int* dst = reinterpret_cast<int*>(&T);
@@ -940,67 +1135,95 @@ __global__ void megastep_kernel(const MegaTables* __restrict__ tables,
     for (int i = threadIdx.x; i < words; i += blockDim.x) dst[i] = src[i];
   }
   __syncthreads();
-  const int env = blockIdx.x * blockDim.x + threadIdx.x;
-  if (env >= B) return;
+  const size_t env = blockIdx.x;
   const int rs = 13 + 7 * T.n_sph + 2 * T.n_rev;
-  Workspace w{ws, (size_t)B, (size_t)env};
   float* links = nullptr;
-  if constexpr (EMIT_LINKS) links = links_out + (size_t)env * MS_LINK_ROWS * T.n_links;
-  megastep_env<EMIT_LINKS>(
-      T, st + (size_t)env * rs, tgt_sph + (size_t)env * 4 * T.n_sph,
-      tgt_rev + (size_t)env * T.n_rev, st_out + (size_t)env * rs,
-      act_out + (size_t)env * T.n_cand, hist_out + (size_t)env * 3 * substeps,
-      links, w, substeps);
+  if constexpr (EMIT_LINKS) links = links_out + env * MS_LINK_ROWS * T.n_links;
+  megastep_block<EMIT_LINKS>(
+      T, st + env * rs, tgt_sph + env * 4 * T.n_sph, tgt_rev + env * T.n_rev,
+      st_out + env * rs, act_out + env * T.n_cand, hist_out + env * 3 * substeps,
+      links, sm, ms_shared, substeps, threadIdx.x, blockDim.x);
 }
 
-// Launch on `stream`: the emit_links variant when links_out is not null,
-// else the default one. Returns cudaGetLastError() (0 = launched).
+template <bool EMIT_LINKS>
+static int ms_launch(const MegaTables* tables, const float* st,
+                     const float* tgt_sph, const float* tgt_rev, float* st_out,
+                     float* act_out, float* hist_out, float* links_out, int B,
+                     int substeps, int threads, int shared_bytes,
+                     cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      megastep_kernel<EMIT_LINKS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      shared_bytes);
+  if (err != cudaSuccess) return (int)err;
+  megastep_kernel<EMIT_LINKS><<<B, threads, shared_bytes, stream>>>(
+      tables, st, tgt_sph, tgt_rev, st_out, act_out, hist_out, links_out, substeps);
+  return (int)cudaGetLastError();
+}
+
+// Launch on `stream`, one block of `threads` threads per env (0: the
+// default MS_THREADS), with `shared_bytes` of dynamic shared memory
+// (pfpn_megastep_shared_bytes of the host copy of the tables): the
+// emit_links variant when links_out is not null, else the default one.
+// Returns a cudaError_t (0 = launched).
 extern "C" int pfpn_megastep_launch(const void* tables, const float* st,
                                     const float* tgt_sph, const float* tgt_rev,
                                     float* st_out, float* act_out,
-                                    float* hist_out, float* links_out,
-                                    float* ws, int B, int substeps,
+                                    float* hist_out, float* links_out, int B,
+                                    int substeps, int threads, int shared_bytes,
                                     void* stream) {
-  const int threads = 64;
-  const int blocks = (B + threads - 1) / threads;
-  if (links_out) {
-    megastep_kernel<true><<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        (const MegaTables*)tables, st, tgt_sph, tgt_rev, st_out, act_out,
-        hist_out, links_out, ws, B, substeps);
-  } else {
-    megastep_kernel<false><<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        (const MegaTables*)tables, st, tgt_sph, tgt_rev, st_out, act_out,
-        hist_out, nullptr, ws, B, substeps);
-  }
-  return (int)cudaGetLastError();
+  if (threads <= 0) threads = MS_THREADS;
+  if (threads % 32 != 0 || threads > MS_MAX_THREADS)
+    return (int)cudaErrorInvalidValue;
+  const MegaTables* t = (const MegaTables*)tables;
+  if (links_out)
+    return ms_launch<true>(t, st, tgt_sph, tgt_rev, st_out, act_out, hist_out,
+                           links_out, B, substeps, threads, shared_bytes,
+                           (cudaStream_t)stream);
+  return ms_launch<false>(t, st, tgt_sph, tgt_rev, st_out, act_out, hist_out,
+                          nullptr, B, substeps, threads, shared_bytes,
+                          (cudaStream_t)stream);
 }
 
 #else
 
-// Host build of the same per-env body (g++ -x c++), for the CPU tests; the
-// emit_links variant when links_out is not null.
+// Host build of the same block body (g++ -x c++), for the CPU tests:
+// `threads` host threads run it env after env, with a std::barrier as
+// BL_SYNC(); the emit_links variant when links_out is not null.
 extern "C" int pfpn_megastep_host(const void* tables, const float* st,
                                   const float* tgt_sph, const float* tgt_rev,
                                   float* st_out, float* act_out,
-                                  float* hist_out, float* links_out, float* ws,
-                                  int B, int substeps) {
+                                  float* hist_out, float* links_out, int B,
+                                  int substeps, int threads) {
+  if (threads < 1) return 1;
   const MegaTables& T = *(const MegaTables*)tables;
   const int rs = 13 + 7 * T.n_sph + 2 * T.n_rev;
-  for (int env = 0; env < B; ++env) {
-    Workspace w{ws, (size_t)B, (size_t)env};
-    const float* s = st + (size_t)env * rs;
-    const float* ts = tgt_sph + (size_t)env * 4 * T.n_sph;
-    const float* tr = tgt_rev + (size_t)env * T.n_rev;
-    float* so = st_out + (size_t)env * rs;
-    float* ao = act_out + (size_t)env * T.n_cand;
-    float* ho = hist_out + (size_t)env * 3 * substeps;
-    if (links_out)
-      megastep_env<true>(T, s, ts, tr, so, ao, ho,
-                         links_out + (size_t)env * MS_LINK_ROWS * T.n_links, w,
-                         substeps);
-    else
-      megastep_env<false>(T, s, ts, tr, so, ao, ho, nullptr, w, substeps);
-  }
+  std::vector<float> sh(ms_layout(T).total);
+  std::vector<MsSmall> small(1);
+  std::barrier<> bar(threads);
+  auto body = [&](int tid) {
+    ms_host_barrier = &bar;
+    for (int env = 0; env < B; ++env) {
+      const float* s = st + (size_t)env * rs;
+      const float* ts = tgt_sph + (size_t)env * 4 * T.n_sph;
+      const float* tr = tgt_rev + (size_t)env * T.n_rev;
+      float* so = st_out + (size_t)env * rs;
+      float* ao = act_out + (size_t)env * T.n_cand;
+      float* ho = hist_out + (size_t)env * 3 * substeps;
+      if (links_out)
+        megastep_block<true>(T, s, ts, tr, so, ao, ho,
+                             links_out + (size_t)env * MS_LINK_ROWS * T.n_links,
+                             small[0], sh.data(), substeps, tid, threads);
+      else
+        megastep_block<false>(T, s, ts, tr, so, ao, ho, nullptr, small[0],
+                              sh.data(), substeps, tid, threads);
+      BL_SYNC();   // the next env reuses the workspace
+    }
+    ms_host_barrier = nullptr;
+  };
+  std::vector<std::thread> pool;
+  for (int t = 1; t < threads; ++t) pool.emplace_back(body, t);
+  body(0);
+  for (auto& th : pool) th.join();
   return 0;
 }
 
@@ -1008,6 +1231,8 @@ extern "C" int pfpn_megastep_host(const void* tables, const float* st,
 
 extern "C" int pfpn_megastep_tables_bytes(void) { return (int)sizeof(MegaTables); }
 
-extern "C" long long pfpn_megastep_ws_floats(const void* tables) {
-  return (long long)ws_floats(*(const MegaTables*)tables);
+extern "C" int pfpn_megastep_default_threads(void) { return MS_THREADS; }
+
+extern "C" int pfpn_megastep_shared_bytes(const void* tables) {
+  return ms_shared_bytes(*(const MegaTables*)tables);
 }

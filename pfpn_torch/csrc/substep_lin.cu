@@ -118,7 +118,7 @@ BL_HD void substep_env(const SubstepTables& T, const float* h, const float* f,
   // ---- Minv; a = Minv f --------------------------------------------------------
   gj_sweep(minv, n, sh + L.scratch, tid, nt);
   for (int i = tid; i < n; i += nt) {
-    acc[i] = row_dot(minv, n, i, f);
+    acc[i] = dot_in_order(minv + i * n, 1, f, 1, n);
     dtau[i] = 0.0f;
   }
   BL_SYNC();
@@ -147,7 +147,7 @@ BL_HD void substep_env(const SubstepTables& T, const float* h, const float* f,
   // their reads below)
   gj_sweep(hinv, n, sh + L.scratch, tid, nt);
   for (int i = tid; i < n; i += nt)
-    vstar[i] = v[i] + T.dt * (acc[i] + row_dot(hinv, n, i, dtau));
+    vstar[i] = v[i] + T.dt * (acc[i] + dot_in_order(hinv + i * n, 1, dtau, 1, n));
   // ---- W = Hinv J^T (n, R) -------------------------------------------------------
   for (int e = tid; e < n * R; e += nt) {
     const int i = e / R, r = e % R;
@@ -171,7 +171,7 @@ BL_HD void substep_env(const SubstepTables& T, const float* h, const float* f,
     float rs = 0.0f;
     for (int c = 0; c < R; ++c) rs += fabsf(A[r * R + c]);
     step[r] = T.relaxation / fmaxf(rs + T.cfm, 1e-9f);
-    b[r] = row_dot(Js, n, r, vstar) - tgt[r];
+    b[r] = dot_in_order(Js + r * n, 1, vstar, 1, n) - tgt[r];
     lam[r] = 0.0f;
   }
   BL_SYNC();
@@ -179,7 +179,7 @@ BL_HD void substep_env(const SubstepTables& T, const float* h, const float* f,
   // ---- projected Jacobi --------------------------------------------------------------
   for (int it = 0; it < T.iterations; ++it) {
     for (int r = tid; r < R; r += nt)
-      upd[r] = lam[r] - step[r] * (row_dot(A, R, r, lam) + b[r]);
+      upd[r] = lam[r] - step[r] * (dot_in_order(A + r * R, 1, lam, 1, R) + b[r]);
     BL_SYNC();
     for (int r = tid; r < R; r += nt) {
       float x;
@@ -201,7 +201,7 @@ BL_HD void substep_env(const SubstepTables& T, const float* h, const float* f,
   }
 
   // ---- v' = v* + W lam ----------------------------------------------------------------
-  for (int i = tid; i < n; i += nt) out[i] = vstar[i] + row_dot(W, R, i, lam);
+  for (int i = tid; i < n; i += nt) out[i] = vstar[i] + dot_in_order(W + i * R, 1, lam, 1, R);
 }
 
 static inline size_t substep_shared_bytes(const SubstepTables& T) {

@@ -5,8 +5,9 @@ action tables and ``_action_to_targets`` of the three control modes (SPD,
 torque, position), ``reset`` with reference-state initialization and the
 ground-penetration lift, ``step`` (through :meth:`Engine.control_step_full`,
 the CUDA megastep on the card, with the closed-form phase-wrap re-sync, or
-:meth:`Engine.control_step_links` when the engine has the megastep's
-``emit_links`` variant, whose link states replace the fk epilogue; or,
+:meth:`Engine.control_step_links` when ``Engine.megastep_links`` is on:
+the megastep's ``emit_links`` variant, whose link states replace the fk
+epilogue; or,
 with the megastep off or another control mode, a loop of
 :meth:`Engine.substep` with the per-substep re-sync), the torque-log
 channel (``step_log``, ``torque_log``), the 197-dim observation, the
@@ -299,7 +300,7 @@ class DeepMimicEnv:
 
         duration = self.motion.duration
         ls = None
-        if self.engine.mega_links is not None:
+        if self.engine.megastep_links:
             # the kernel also emits the final link states, which replace the
             # fk + link_states epilogue of _finish (deepmimic.py:331-336)
             sim, active, hist, ls = self.engine.control_step_links(

@@ -28,7 +28,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
-HOST_FLAGS = ("-x", "c++", "-std=c++17", "-O2", "-shared", "-fPIC")
+HOST_FLAGS = ("-x", "c++", "-std=c++20", "-O2", "-shared", "-fPIC", "-pthread")
 
 
 def nvcc() -> str:

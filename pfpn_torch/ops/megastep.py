@@ -4,22 +4,23 @@ Counterpart of ``pfpn_tpu/ops/megastep.py``. :class:`MegaMeta`,
 :func:`build_meta`, :func:`pack_state` and :func:`unpack_state` are ports of
 ``megastep.py:56-271``. The TPU kernel (``_make_kernel``, launched by
 ``megastep_pallas``) becomes ``csrc/megastep.cu``: hand-written CUDA C++ for
-``sm_90a``, one environment per thread, compiled with ``nvcc`` at first use
-into ``build/`` and bound with ctypes (``ops/_build.py``). :class:`Megastep`
-is the wrapper:
+``sm_90a``, one thread block per environment with its whole workspace in
+shared memory, compiled with ``nvcc`` at first use into ``build/`` and bound
+with ctypes (``ops/_build.py``). :class:`Megastep` is the wrapper:
 
 * on a CUDA tensor it launches the kernel on the current stream, raises if
-  the launch is refused, and adds one to ``launches``;
+  the launch is refused, and adds one to its variant's count;
 * on a CPU tensor it runs the plain version, a Python loop of ``frame_skip``
   reference substeps (the engine's fused substep over the batched
   ``ops/substep_lin.py`` math), as ``make_megastep._primal`` does.
 
-There is no fallback from one to the other. A :class:`Megastep` built with a
-``link_state_fn`` is the TPU kernel's ``emit_links`` variant: the kernel
-also writes the final link states (the epilogue of ``megastep.py:994-1077``,
-a compile-time branch of the same source), and the plain version takes them
-from ``link_state_fn``. Each instance counts its own launches, so the two
-variants are counted apart.
+There is no fallback from one to the other. One :class:`Megastep` serves
+both of the TPU kernel's variants: with ``links=True`` it runs the
+``emit_links`` variant, whose kernel also writes the final link states (the
+epilogue of ``megastep.py:994-1077``, a compile-time branch of the same
+source) and whose plain version takes them from ``link_state_fn``.
+``launches`` counts the default variant's launches, ``launches_links`` the
+``emit_links`` variant's.
 """
 
 from __future__ import annotations
@@ -237,8 +238,10 @@ _I, _U, _F = ctypes.c_int32, ctypes.c_uint32, ctypes.c_float
 class MegaTables(ctypes.Structure):
     _fields_ = [(name, _I) for name in (
         "ndof", "nb", "n_sph", "n_rev", "n_cand", "K", "n_lim", "frame_skip",
-        "up", "iterations", "n_sph_motors", "n_rev_motors")] + [
-        ("topo", _I * MAXB), ("parent", _I * MAXB), ("jtype", _I * MAXB),
+        "up", "iterations", "n_sph_motors", "n_rev_motors", "n_levels")] + [
+        ("order", _I * MAXB), ("level_off", _I * (MAXB + 1)),
+        ("child_off", _I * (MAXB + 1)), ("child", _I * MAXB),
+        ("parent", _I * MAXB), ("jtype", _I * MAXB),
         ("sph_index", _I * MAXB), ("rev_index", _I * MAXB),
         ("dof_offset", _I * MAXB), ("dof_count", _I * MAXB),
         ("anc", _U * MAXB),
@@ -292,6 +295,9 @@ def pack_tables(meta: MegaMeta) -> MegaTables:
     if meta.jtype[0] != 0 or any(j not in (1, 2) for j in meta.jtype[1:]):
         raise ValueError("megastep kernel needs a free base and spherical or "
                          "revolute joints")
+    if meta.parent[0] != -1 or sorted(meta.topo) != list(range(1, meta.nb)):
+        raise ValueError("megastep kernel needs body 0 as the root and every "
+                         "other body in topo")
 
     t = MegaTables()
     for name, val in (("ndof", n), ("nb", meta.nb), ("n_sph", meta.n_sph),
@@ -309,7 +315,21 @@ def pack_tables(meta: MegaMeta) -> MegaTables:
         for i, x in enumerate(flat):
             arr[i] = x.item() if isinstance(arr[0], float) else int(x)
 
-    fill("topo", meta.topo)
+    # the tree level by level (the kernel's phases): the root, then the
+    # other bodies by depth in topo order; each body's children, last in
+    # that order first (the order the composites and bias forces sum them)
+    depth = [0] * meta.nb
+    for b in meta.topo:
+        depth[b] = depth[meta.parent[b]] + 1
+    order = [0] + sorted(meta.topo, key=lambda b: depth[b])
+    t.n_levels = max(depth) + 1
+    fill("order", order)
+    fill("level_off", [sum(1 for b in order if depth[b] < lev)
+                       for lev in range(t.n_levels + 1)])
+    children = [[b for b in reversed(order) if meta.parent[b] == p]
+                for p in range(meta.nb)]
+    fill("child_off", np.cumsum([0] + [len(c) for c in children]))
+    fill("child", [b for c in children for b in c])
     fill("parent", meta.parent)
     fill("jtype", meta.jtype)
     fill("sph_index", meta.sph_index)
@@ -456,24 +476,26 @@ def megastep_bytes(meta: MegaMeta, batch: int, substeps: Optional[int] = None,
 # ---------------------------------------------------------------------------
 
 def _declare(lib, host: bool):
-    ptrs = [ctypes.c_void_p] * 9
+    ptrs = [ctypes.c_void_p] * 8
     if host:
         fn = lib.pfpn_megastep_host
-        fn.argtypes = ptrs + [ctypes.c_int, ctypes.c_int]
+        fn.argtypes = ptrs + [ctypes.c_int] * 3
     else:
         fn = lib.pfpn_megastep_launch
-        fn.argtypes = ptrs + [ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
+        fn.argtypes = ptrs + [ctypes.c_int] * 4 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.pfpn_megastep_tables_bytes.argtypes = []
     lib.pfpn_megastep_tables_bytes.restype = ctypes.c_int
-    lib.pfpn_megastep_ws_floats.argtypes = [ctypes.c_void_p]
-    lib.pfpn_megastep_ws_floats.restype = ctypes.c_longlong
+    lib.pfpn_megastep_shared_bytes.argtypes = [ctypes.c_void_p]
+    lib.pfpn_megastep_shared_bytes.restype = ctypes.c_int
+    lib.pfpn_megastep_default_threads.argtypes = []
+    lib.pfpn_megastep_default_threads.restype = ctypes.c_int
     if lib.pfpn_megastep_tables_bytes() != ctypes.sizeof(MegaTables):
         raise RuntimeError("MegaTables layout differs between "
                            "csrc/megastep.cu and ops/megastep.py")
 
 
-LIBRARY = CudaSource("megastep", _declare)
+LIBRARY = CudaSource("megastep", _declare, headers=("block_linalg.cuh",))
 
 
 # ---------------------------------------------------------------------------
@@ -486,40 +508,44 @@ class Megastep:
 
     ``reference_substep(state, t_sph, t_rev) -> (state', active_all,
     base_pos)`` is the engine's batched fused substep (the plain version's
-    body). With ``link_state_fn(state') -> LinkStates`` this is the
-    ``emit_links`` variant: every version also returns the final link
-    states, as ``make_megastep(..., link_state_fn)`` does. ``launches``
-    counts kernel launches."""
+    body). With ``links=True`` a call runs the ``emit_links`` variant and
+    also returns the final link states, as ``make_megastep(...,
+    link_state_fn)`` does; its plain version takes them from
+    ``link_state_fn(state') -> LinkStates``. ``launches`` and
+    ``launches_links`` count the kernel launches of the two variants."""
 
     def __init__(self, meta: MegaMeta, reference_substep: Callable,
-                 link_state_fn: Optional[Callable] = None):
+                 link_state_fn: Callable):
         self.meta = meta
         self.reference_substep = reference_substep
         self.link_state_fn = link_state_fn
-        self.emit_links = link_state_fn is not None
         self.tables = pack_tables(meta)
         self._tables_dev = {}
+        self._shared_bytes = None
         self.launches = 0
+        self.launches_links = 0
 
     # -- SimState interface (Engine.control_step_full / control_step_links) --
-    def __call__(self, state, t_sph: torch.Tensor, t_rev: torch.Tensor):
+    def __call__(self, state, t_sph: torch.Tensor, t_rev: torch.Tensor,
+                 links: bool = False):
         """(state', active (B, n_cand) bool, base_hist (B, frame_skip, 3)),
-        and the final LinkStates for the emit_links variant."""
+        and the final LinkStates with ``links``."""
         B = t_sph.shape[0]
         st = pack_state(self.meta, state)
-        out = self.run(st, t_sph.reshape(B, -1), t_rev)
+        out = self.run(st, t_sph.reshape(B, -1), t_rev, links=links)
         sim = unpack_state(self.meta, out[0], state)
-        if self.emit_links:
+        if links:
             return sim, out[1], out[2], links_to_states(self.meta, out[3])
         return (sim,) + out[1:]
 
-    def run(self, st, tgt_sph, tgt_rev, substeps: Optional[int] = None):
+    def run(self, st, tgt_sph, tgt_rev, substeps: Optional[int] = None,
+            links: bool = False):
         """Packed interface: st (B, rows_state), tgt_sph (B, 4 n_sph),
         tgt_rev (B, n_rev) -> (st', active bool, hist (B, substeps, 3)),
-        plus the link rows (B, LINK_ROWS * n_links) for emit_links."""
+        plus the link rows (B, LINK_ROWS * n_links) with ``links``."""
         if st.is_cuda:
-            return self.kernel(st, tgt_sph, tgt_rev, substeps)
-        return self.plain(st, tgt_sph, tgt_rev, substeps)
+            return self.kernel(st, tgt_sph, tgt_rev, substeps, links=links)
+        return self.plain(st, tgt_sph, tgt_rev, substeps, links=links)
 
     def _check(self, st, tgt_sph, tgt_rev, substeps) -> int:
         """Raise on inputs no version takes; returns the substep count
@@ -542,25 +568,31 @@ class Megastep:
             raise ValueError("megastep needs B >= 1 and substeps >= 1")
         return substeps
 
-    def _ws_floats(self, lib) -> int:
-        """Per-env workspace of the kernel, as the CUDA source lays it out."""
-        return int(lib.pfpn_megastep_ws_floats(ctypes.addressof(self.tables)))
+    def shared_bytes(self, lib) -> int:
+        """Dynamic shared memory of one block, as the CUDA source lays it out."""
+        if self._shared_bytes is None:
+            self._shared_bytes = int(lib.pfpn_megastep_shared_bytes(
+                ctypes.addressof(self.tables)))
+        return self._shared_bytes
 
-    def _outputs(self, B: int, substeps: int, dev):
+    def _outputs(self, B: int, substeps: int, dev, links: bool):
         m = self.meta
         st_out = torch.empty(B, m.rows_state, device=dev)
         act = torch.empty(B, m.n_cand, device=dev)
         hist = torch.empty(B, substeps, 3, device=dev)
-        links = (torch.empty(B, LINK_ROWS * m.n_links, device=dev)
-                 if self.emit_links else None)
-        return st_out, act, hist, links
+        rows = torch.empty(B, LINK_ROWS * m.n_links, device=dev) if links else None
+        return st_out, act, hist, rows
 
-    def _result(self, st_out, act, hist, links):
+    @staticmethod
+    def _result(st_out, act, hist, rows):
         out = (st_out, act > 0.5, hist)
-        return out + (links,) if self.emit_links else out
+        return out if rows is None else out + (rows,)
 
     # -- the kernel ---------------------------------------------------------
-    def kernel(self, st, tgt_sph, tgt_rev, substeps: Optional[int] = None):
+    def kernel(self, st, tgt_sph, tgt_rev, substeps: Optional[int] = None,
+               links: bool = False, threads: Optional[int] = None):
+        """Launch csrc/megastep.cu, one block per env; ``threads`` per block
+        (a multiple of 32, at most 256; None for the source's default)."""
         substeps = self._check(st, tgt_sph, tgt_rev, substeps)
         if not st.is_cuda:
             raise ValueError("megastep kernel needs CUDA tensors")
@@ -575,42 +607,48 @@ class Megastep:
             tables = raw.to(dev)
             self._tables_dev[dev] = tables
         B = st.shape[0]
-        st_out, act, hist, links = self._outputs(B, substeps, dev)
-        ws = torch.empty(self._ws_floats(lib) * B, device=dev)
+        st_out, act, hist, rows = self._outputs(B, substeps, dev, links)
         with torch.cuda.device(dev):     # the launch goes to the current device
             rc = lib.pfpn_megastep_launch(
                 tables.data_ptr(), st.data_ptr(), tgt_sph.data_ptr(),
                 tgt_rev.data_ptr(), st_out.data_ptr(), act.data_ptr(),
-                hist.data_ptr(), None if links is None else links.data_ptr(),
-                ws.data_ptr(), B, substeps,
+                hist.data_ptr(), None if rows is None else rows.data_ptr(),
+                B, substeps, threads or 0, self.shared_bytes(lib),
                 torch.cuda.current_stream(dev).cuda_stream)
         if rc != 0:
             raise RuntimeError(f"megastep kernel launch failed: cudaError {rc}")
-        self.launches += 1
-        return self._result(st_out, act, hist, links)
+        if links:
+            self.launches_links += 1
+        else:
+            self.launches += 1
+        return self._result(st_out, act, hist, rows)
 
     # -- the CUDA source's arithmetic on the host ---------------------------
-    def host(self, st, tgt_sph, tgt_rev, substeps: Optional[int] = None):
-        """Run csrc/megastep.cu's per-env body, built with g++, on CPU
-        tensors (the CPU tests' view of the kernel's arithmetic)."""
+    def host(self, st, tgt_sph, tgt_rev, substeps: Optional[int] = None,
+             links: bool = False, threads: int = 1):
+        """Run csrc/megastep.cu's block body, built with g++, on CPU tensors
+        with ``threads`` host threads per env (the CPU tests' view of the
+        kernel's arithmetic)."""
         substeps = self._check(st, tgt_sph, tgt_rev, substeps)
         st, tgt_sph, tgt_rev = (x.detach().cpu().contiguous()
                                 for x in (st, tgt_sph, tgt_rev))
         lib = LIBRARY.load(host=True)
         B = st.shape[0]
-        st_out, act, hist, links = self._outputs(B, substeps, "cpu")
-        ws = torch.empty(self._ws_floats(lib) * B)
-        lib.pfpn_megastep_host(
+        st_out, act, hist, rows = self._outputs(B, substeps, "cpu", links)
+        rc = lib.pfpn_megastep_host(
             ctypes.addressof(self.tables), st.data_ptr(), tgt_sph.data_ptr(),
             tgt_rev.data_ptr(), st_out.data_ptr(), act.data_ptr(),
-            hist.data_ptr(), None if links is None else links.data_ptr(),
-            ws.data_ptr(), B, substeps)
-        return self._result(st_out, act, hist, links)
+            hist.data_ptr(), None if rows is None else rows.data_ptr(),
+            B, substeps, int(threads))
+        if rc != 0:
+            raise ValueError(f"megastep host build: threads={threads} refused")
+        return self._result(st_out, act, hist, rows)
 
     # -- the plain version ----------------------------------------------------
-    def plain(self, st, tgt_sph, tgt_rev, substeps: Optional[int] = None):
-        """Loop of reference substeps (make_megastep._primal), then, for
-        emit_links, ``link_state_fn`` of the final state."""
+    def plain(self, st, tgt_sph, tgt_rev, substeps: Optional[int] = None,
+              links: bool = False):
+        """Loop of reference substeps (make_megastep._primal), then, with
+        ``links``, ``link_state_fn`` of the final state."""
         from ..sim.types import SimState
 
         m = self.meta
@@ -624,6 +662,6 @@ class Megastep:
             state, act, base_pos = self.reference_substep(state, t_sph, tgt_rev)
             hist.append(base_pos)
         out = (pack_state(m, state), act, torch.stack(hist, 1))
-        if self.emit_links:
+        if links:
             out += (states_to_links(self.link_state_fn(state)),)
         return out

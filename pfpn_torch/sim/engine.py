@@ -18,10 +18,11 @@ JAX engine's three branches (``engine.py:138-205``):
 :meth:`Engine.control_step_full` runs the whole control step through the
 CUDA megastep (:class:`~pfpn_torch.ops.megastep.Megastep`), which exists,
 as in JAX (``engine.py:86-92``), only for fused Stable-PD with the megastep
-on. With ``EngineConfig.megastep_links``, or the JAX package's own
-``PFPN_MEGASTEP_LINKS=1`` override (``engine.py:97-104``), the engine also
-builds the megastep's ``emit_links`` variant, and
-:meth:`Engine.control_step_links` returns the final link states too.
+on. :meth:`Engine.control_step_links` runs the same megastep's
+``emit_links`` variant and returns the final link states too;
+``EngineConfig.megastep_links``, or the JAX package's own
+``PFPN_MEGASTEP_LINKS=1`` override (``engine.py:97-104``), sets
+``Engine.megastep_links``, which routes the env step through it.
 """
 
 from __future__ import annotations
@@ -58,9 +59,9 @@ class EngineConfig:
     fused: bool = True
     # the whole control step in one kernel (csrc/megastep.cu); fused SPD only
     megastep: bool = True
-    # also the megastep's emit_links variant, which returns the final link
-    # states (env.step then skips its fk + link_states epilogue);
-    # PFPN_MEGASTEP_LINKS=1 turns it on as well
+    # env.step through the megastep's emit_links variant, which returns the
+    # final link states (env.step then skips its fk + link_states
+    # epilogue); PFPN_MEGASTEP_LINKS=1 turns it on as well
     megastep_links: bool = False
 
 
@@ -78,14 +79,13 @@ class Engine:
         self.fused = config.fused and config.control_mode == "spd"
         self.meta = build_meta(tree, gains, config.contact, self.contact_set,
                                config.dt, config.frame_skip, config.gravity)
-        self.mega = (Megastep(self.meta, self._substep_fused_core_full)
+        # one Megastep for both kernel variants, each counted apart
+        self.mega = (Megastep(self.meta, self._substep_fused_core_full,
+                              link_state_fn=lambda st: link_states(tree, fk(tree, st)))
                      if config.megastep and self.fused else None)
-        self.mega_links = None
-        if self.mega is not None and (config.megastep_links or os.environ.get(
-                "PFPN_MEGASTEP_LINKS", "") not in ("", "0")):
-            self.mega_links = Megastep(
-                self.meta, self._substep_fused_core_full,
-                link_state_fn=lambda st: link_states(tree, fk(tree, st)))
+        self.megastep_links = self.mega is not None and (
+            config.megastep_links
+            or os.environ.get("PFPN_MEGASTEP_LINKS", "") not in ("", "0"))
         lo = np.full(tree.n_rev, -np.inf)
         hi = np.full(tree.n_rev, np.inf)
         for m, b in enumerate(tree.motor_bodies):
@@ -217,9 +217,9 @@ class Engine:
     def control_step_links(self, state: SimState, target_sph, target_rev):
         """:meth:`control_step_full` plus the final LinkStates, through the
         megastep's emit_links variant (engine.py:258-262)."""
-        if self.mega_links is None:
-            raise RuntimeError("megastep_links not enabled")
-        return self.mega_links(state, target_sph, target_rev)
+        if self.mega is None:
+            raise RuntimeError("megastep not enabled")
+        return self.mega(state, target_sph, target_rev, links=True)
 
     def link_contact_from_active(self, active: torch.Tensor) -> torch.Tensor:
         """Per-candidate flags (B, n_cand) -> per-link flags (B, nl + 1)."""

@@ -9,11 +9,13 @@ drop states in ground contact (``tests/test_fused.py:26-40``).
   quaternions, 1e-4 on velocities, exact contact flags;
 * the port's plain megastep (20 substeps) against the JAX megastep's CPU
   path, under the bounds of ``tests/test_megastep.py:139-152``;
-* ``csrc/megastep.cu``'s per-env body, built for the host with g++, against
+* ``csrc/megastep.cu``'s block body, built for the host with g++, against
   the plain version under the same bounds (the kernel's arithmetic, without
   a card); its ``emit_links`` variant, from perturbed and drop states, equal
   to the default variant in state, flags and history, and its link rows
-  against JAX's ``link_states(fk(.))`` of the kernel's own final state.
+  against JAX's ``link_states(fk(.))`` of the kernel's own final state;
+  both variants run by 4 host threads per env bit-equal to 1 thread (a
+  missing barrier or a read across threads would show as a difference).
 
 This file keeps to four tests: pytest-xdist's loadfile schedule hands out
 files with more tests first, and this slower file should not delay
@@ -34,7 +36,6 @@ from pfpn_torch.envs.deepmimic import make as t_make  # noqa: E402
 from pfpn_torch.ops import megastep as tms  # noqa: E402
 from pfpn_torch.sim.types import SimState as TSimState  # noqa: E402
 from pfpn_tpu.envs.assets import HUMANOID_KD, HUMANOID_KP, humanoid_tree  # noqa: E402
-from pfpn_torch.sim.dynamics import fk, link_states  # noqa: E402
 from pfpn_tpu.sim.dynamics import fk as j_fk, link_states as j_link_states  # noqa: E402
 from pfpn_tpu.sim.engine import Engine, EngineConfig  # noqa: E402
 from pfpn_tpu.sim.types import SimState as JSimState, zero_state  # noqa: E402
@@ -231,19 +232,22 @@ def _cuda_source_emit_links(env, kind):
     """The megastep's emit_links variant, host-built: its state, flags and
     history equal the default variant's exactly, and its link rows match
     JAX's ``link_states(tree, fk(tree, .))`` of its own final state
-    (quaternions up to sign)."""
+    (quaternions up to sign). Both variants, run by 4 host threads on the
+    first 8 envs, equal the 1-thread run bit for bit."""
     eng = env.engine
-    tree_t = env.tree
-    links = tms.Megastep(eng.meta, eng._substep_fused_core_full,
-                         link_state_fn=lambda st: link_states(tree_t, fk(tree_t, st)))
     s = _states(env, kind, 16, 23)
     ts, tr = _targets(16, eng.meta.n_sph, eng.meta.n_rev)
     args = (tms.pack_state(eng.meta, _to_torch(s)), torch.tensor(ts).reshape(16, -1),
             torch.tensor(tr))
     plain_out = eng.mega.host(*args)
-    out = links.host(*args)
+    out = eng.mega.host(*args, links=True)
     for a, b in zip(plain_out, out[:3]):
         assert torch.equal(a, b)
+    args8 = tuple(x[:8] for x in args)
+    for links, one in ((False, plain_out), (True, out)):
+        four = eng.mega.host(*args8, links=links, threads=4)
+        for a, b in zip(one, four):
+            assert torch.equal(a[:8], b), f"links={links}: 4 threads differ from 1"
     final = tms.unpack_state(eng.meta, out[0], _to_torch(s))
     tree_j = humanoid_tree()
     want = jax.jit(jax.vmap(lambda st: j_link_states(tree_j, j_fk(tree_j, st))))(

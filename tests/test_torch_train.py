@@ -380,8 +380,8 @@ def test_cli_trains_and_resumes_on_cpu(tmp_path, monkeypatch):
             "--max_rounds", "1", "--root", str(tmp_path)]
     algo, state = cli.main(argv)
     assert state.global_step == 1 and state.total_samples == 8
-    assert algo.env.engine.mega_links is not None
-    assert algo.env.engine.mega_links.launches == algo.env.engine.mega.launches == 0
+    assert algo.env.engine.megastep_links
+    assert algo.env.engine.mega.launches_links == algo.env.engine.mega.launches == 0
     cfg = tiny("deepmimic_dppo_pfpn", particles=35, env="DeepMimicWalk-v0", seed=5)
     ckpt = CheckpointManager(cfg.checkpoint_dir(str(tmp_path)))
     assert ckpt.steps() == [1]
