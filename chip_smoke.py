@@ -6,9 +6,10 @@ Phases, in order; any failure exits non-zero:
 1. a CUDA card is required; prints its name and power limit;
 2. builds the three kernels (``pfpn_torch/csrc/megastep.cu``,
    ``spd_inverse.cu``, ``substep_lin.cu``) with nvcc for sm_90a, one nvcc
-   per source, all started together, and prints what ptxas reports for the
-   megastep's two instantiations (registers, shared memory, stack frame,
-   spills);
+   per source, all started together, and prints what ptxas reports
+   (registers, shared memory, stack frame, spills) for the megastep's two
+   instantiations, ``spd_inverse``'s warp kernel and ``substep_lin``'s
+   two-warp kernel;
 3. holds the megastep kernel against its plain PyTorch version on the card,
    from perturbed reset states: one substep (B=256), one control step
    (B=16), and the share of envs past the bounds at B=1024; then one env
@@ -23,22 +24,25 @@ Phases, in order; any failure exits non-zero:
    the env step rate with random actions and with the policy in the loop
    (CUDA events);
 6. ``spd_inverse_pair`` against its plain version at B=1024, on H from
-   perturbed and drop states; times it, the plain version and the library
-   yardstick (``torch.linalg.cholesky_ex`` + ``torch.cholesky_inverse``) at
-   B=8192, each as the median of five groups of calls, with their spread;
+   perturbed and drop states; times it (16,384 matrices), ``spd_inverse``
+   (8,192), the plain version and the library yardstick
+   (``torch.linalg.cholesky_ex`` + ``torch.cholesky_inverse``) at B=8192,
+   each as the median of five groups of calls, with their spread; prints
+   the threads per matrix and the share of the bound;
 7. ``substep_core`` against its plain version at B=256 on the inputs of
-   ``tests/test_fused.py:100-118``; times both at B=8192 as phase 6 does;
+   ``tests/test_fused.py:100-118``; times both at B=8192 as phase 6 does,
+   with the threads per env and the share of the bound;
 8. ``Engine.substep``, kernel path against plain path on the card at B=256,
    in four modes: fused SPD with the megastep off, unfused SPD with
    ``return_torque``, torque and position control;
 9. one control step at B=1024, ``Engine.control_step`` with the megastep off
    against the megastep kernel;
-10. the megastep-off path: plays the shipped Walk npz for 300 steps with
+10. the megastep-off path: plays the shipped Walk npz for 600 steps with
    the env's engine built with ``EngineConfig(megastep=False)``, 20
-   ``substep_lin`` launches and no megastep launch per env step, and holds
-   each episode's return within 1% of the megastep play over the same 300
-   steps from the same start states (the full 600 steps took ~8-10 of this
-   script's minutes);
+   ``substep_lin`` launches and no megastep launch per env step; holds each
+   episode's return at step 300 within 1% of phase 4's megastep play at
+   the same step (same start states), and the mean return over the 600
+   steps within 5% of the JAX package's 578.53;
 11. the ``spd_inverse`` paths at B=8192: ``step_log`` (20
    ``spd_inverse_pair`` launches per env step) and torque-control
    ``step_autoreset`` under random normalized torques (20 ``spd_inverse``
@@ -84,7 +88,8 @@ from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
 
 NPZ = "results/policies/DeepMimicWalk-v0_deepmimic_dppo_pfpn_particle35_34114_step58608.npz"
-PLAY_OFF_STEPS = 300   # phase 10: the megastep-off play is launch-bound, ~1 s per step
+PLAY_OFF_STEPS = 600   # phase 10: the whole play; launch-bound, ~0.7 s per step
+PLAY_CHECK_STEP = 300  # phase 10: the step at which both plays' returns are compared
 JAX_PLAY_RETURN = 578.53   # tools/export_policy.py --play, JAX on the CPU (PERF.md)
 FP32_PEAK = 67e12      # H100 SXM fp32 outside the tensor cores, FLOP/s
 HBM_RATE = 3.35e12     # H100 SXM device memory, bytes/s
@@ -228,8 +233,36 @@ def megastep_links_on():
             os.environ["PFPN_MEGASTEP_LINKS"] = old
 
 
+class ReturnRecorder:
+    """Wraps an env's ``step_batch`` and keeps each step's reward and done,
+    so that ``PPO.evaluate``'s per-episode return can be read at any step."""
+
+    def __init__(self, step_batch):
+        self.step_batch, self.rewards, self.dones = step_batch, [], []
+
+    def __call__(self, *args, **kwargs):
+        res = self.step_batch(*args, **kwargs)
+        self.rewards.append(res.reward.detach().cpu())
+        self.dones.append(res.done.detach().cpu())
+        return res
+
+    def returns_at(self, steps: int):
+        """Per-episode return after ``steps`` env steps, as evaluate adds
+        rewards: a step counts while its episode was not done before it."""
+        import torch
+
+        ret = torch.zeros_like(self.rewards[0])
+        done = torch.zeros_like(self.dones[0])
+        for r, d in zip(self.rewards[:steps], self.dones[:steps]):
+            ret = ret + torch.where(done, torch.zeros_like(r), r)
+            done = done | d
+        return ret
+
+
 def main():
     import torch
+
+    run_t0 = time.time()
 
     # ---- 1. the card ------------------------------------------------------
     if not torch.cuda.is_available():
@@ -283,6 +316,15 @@ def main():
           f"block by default")
     check(all(ptxas.values()) or not report,
           f"megastep: ptxas reported no instantiation of both variants: {sorted(report)}")
+    # the redesigned kernels of the per-substep path, as ptxas compiled them
+    ptxas_new = {}
+    for (path, log, _), tag in ((built[1], "spd_inverse_warp_kernel"),
+                                (built[2], "substep_lin_warps_kernel")):
+        found = ptxas_report(log)
+        ptxas_new[tag] = next((v for k, v in found.items() if tag in k), None)
+        check(ptxas_new[tag] is not None or not found,
+              f"{tag}: ptxas reported no such kernel: {sorted(found)}")
+    print(f"spd_inverse and substep_lin ptxas, sm_90a: {json.dumps(ptxas_new)}")
 
     def reset_counts():
         for wrapper in counted:
@@ -409,7 +451,9 @@ def main():
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.time()
-    res = play(NPZ, episodes=10, max_steps=600, seed=0, algo=algo)
+    rec_on = ReturnRecorder(algo.env.step_batch)
+    with mock.patch.object(algo.env, "step_batch", rec_on):
+        res = play(NPZ, episodes=10, max_steps=600, seed=0, algo=algo)
     torch.cuda.synchronize()
     play_s = time.time() - t0
     launches = main_mega.launches
@@ -562,6 +606,9 @@ def main():
     # the yardstick factors with cholesky_ex: cholesky's info check would
     # synchronize with the host inside the timed window
     spd_t = cuda_ms_spread(lambda: linalg.spd_inverse_kernel(pairs), warm=3, reps=20)
+    single = pairs[:, 1].contiguous()
+    spd1_t = cuda_ms_spread(lambda: linalg.spd_inverse_kernel(single), warm=3, reps=20)
+    del single
     spd_plain_t = cuda_ms_spread(lambda: linalg.spd_inverse_reference(pairs),
                                  warm=2, reps=10)
     spd_lib_t = cuda_ms_spread(
@@ -572,10 +619,14 @@ def main():
     # the factor and L^-T L^-1, n^3/3 each
     spd_bound_ms, spd_bound_by = bound(n_mat * float(n_dof ** 3),
                                        n_mat * 2 * 4 * n_dof * n_dof)
+    spd_group = linalg.group_threads(n_dof)
     print(f"spd_inverse_pair B={BIG_B} ({n_mat} matrices) [{card}], median (min-max) "
-          f"of 5 groups: kernel {spread_text(spd_t)}, plain {spread_text(spd_plain_t)}, "
+          f"of 5 groups: kernel {spread_text(spd_t)} ({spd_group} threads per matrix), "
+          f"plain {spread_text(spd_plain_t)}, "
           f"cholesky_ex + cholesky_inverse {spread_text(spd_lib_t)}, "
-          f"bound {spd_bound_ms:.4f} ms by {spd_bound_by}")
+          f"bound {spd_bound_ms:.4f} ms by {spd_bound_by}, "
+          f"{spd_bound_ms / spd_ms:.1%} of the bound; spd_inverse on {BIG_B} matrices "
+          f"{spread_text(spd1_t)}")
     del pairs, x_k, x_p
 
     # ---- 7. substep_core --------------------------------------------------------
@@ -601,9 +652,11 @@ def main():
     core_bound_ms, core_bound_by = bound(
         float(sl.substep_flops(smeta)) * BIG_B,
         4 * BIG_B * (n_dof * n_dof + 4 * n_dof + R * n_dof + R + K + max(L, 1)))
+    core_threads = sl.block_threads(smeta)
     print(f"substep_core B={BIG_B} [{card}], median (min-max) of 5 groups: kernel "
-          f"{spread_text(core_t)}, plain {spread_text(core_plain_t)}, "
-          f"bound {core_bound_ms:.4f} ms by {core_bound_by}")
+          f"{spread_text(core_t)} ({core_threads} threads per env), plain "
+          f"{spread_text(core_plain_t)}, bound {core_bound_ms:.4f} ms by {core_bound_by}, "
+          f"{core_bound_ms / core_ms:.1%} of the bound")
     del args
 
     # ---- 8. Engine.substep, kernel path against plain path ---------------------------
@@ -686,31 +739,39 @@ def main():
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.time()
-    res_off = play(NPZ, episodes=10, max_steps=PLAY_OFF_STEPS, seed=0, algo=algo)
+    rec_off = ReturnRecorder(algo.env.step_batch)
+    with mock.patch.object(algo.env, "step_batch", rec_off):
+        res_off = play(NPZ, episodes=10, max_steps=PLAY_OFF_STEPS, seed=0, algo=algo)
     torch.cuda.synchronize()
     play_off_s = time.time() - t0
     off_counts = counts()
     algo.env.engine = acting_engine
-    # the megastep play over the same steps, from the same start states
-    res_on = play(NPZ, episodes=10, max_steps=PLAY_OFF_STEPS, seed=0, algo=algo)
-    rew_off, rew_on = res_off["reward"].cpu(), res_on["reward"].cpu()
+    rew_off = res_off["reward"].cpu()
     steps_off = int(res_off["frames"].max())
-    ret_off, ret_on = float(rew_off.mean()), float(rew_on.mean())
-    play_off_gap = float((rew_off - rew_on).abs().max())
+    ret_off = float(rew_off.mean())
+    # both plays at PLAY_CHECK_STEP: the same start states (seed 0), phase 4's
+    # megastep play and this one
+    on_mid, off_mid = rec_on.returns_at(PLAY_CHECK_STEP), rec_off.returns_at(PLAY_CHECK_STEP)
+    mid_gap = (off_mid - on_mid).abs()
+    mid_rel = float((mid_gap / on_mid.abs()).max())
     print(f"play, megastep off: 10 deterministic Walk episodes of {PLAY_OFF_STEPS} steps in "
           f"{play_off_s:.1f} s: return mean {ret_off:.2f} min {float(rew_off.min()):.2f} max "
-          f"{float(rew_off.max()):.2f}; with the megastep over the same steps {ret_on:.2f}, "
-          f"largest per-episode gap {play_off_gap:.3f}; {steps_off} env steps, launches "
-          f"{off_counts}")
+          f"{float(rew_off.max()):.2f} (JAX {JAX_PLAY_RETURN}); at step {PLAY_CHECK_STEP} "
+          f"mean {float(off_mid.mean()):.2f} against the megastep play's "
+          f"{float(on_mid.mean()):.2f}, largest per-episode gap {float(mid_gap.max()):.3f} "
+          f"({mid_rel:.3%} of that episode's); {steps_off} env steps, launches {off_counts}")
     check(bool(torch.isfinite(rew_off).all()), "play, megastep off: return not finite")
     check(off_counts == {"megastep": 0, "megastep_emit_links": 0, "spd_inverse": 0,
                          "substep_lin": meta.frame_skip * steps_off},
           f"play, megastep off: launches {off_counts} for {steps_off} env steps")
+    check(steps_off == PLAY_OFF_STEPS, f"play, megastep off: {steps_off} env steps")
     # control steps of the two paths agree to 2e-4 in positions (phase 9): over
     # 300 steps the returns, ~290, agree to a few hundredths
-    check(play_off_gap <= 0.01 * ret_on,
-          f"play, megastep off: an episode's return is {play_off_gap:.3f} from the "
-          f"megastep play's, more than 1% of {ret_on:.2f}")
+    check(mid_rel <= 0.01,
+          f"play, megastep off: an episode's return at step {PLAY_CHECK_STEP} is "
+          f"{mid_rel:.3%} from the megastep play's, more than 1%")
+    check(abs(ret_off - JAX_PLAY_RETURN) <= 0.05 * JAX_PLAY_RETURN,
+          f"play, megastep off: return {ret_off:.2f}, more than 5% from {JAX_PLAY_RETURN}")
 
     # ---- 11. the spd_inverse paths at B=8192 -----------------------------------------
     g = torch.Generator(device=dev).manual_seed(15)
@@ -1084,6 +1145,9 @@ def main():
         "library": "torch.linalg.cholesky_ex + torch.cholesky_inverse",
         "ms_spread": spd_t[1:], "plain_ms_spread": spd_plain_t[1:],
         "library_ms_spread": spd_lib_t[1:],
+        "single_ms": spd1_t[0], "single_ms_spread": spd1_t[1:], "single_matrices": BIG_B,
+        "threads_per_matrix": spd_group,
+        "ptxas": ptxas_new["spd_inverse_warp_kernel"],
         "batch": BIG_B,
         "matrices": n_mat,
         "build_s": build_time["spd_inverse"],
@@ -1103,14 +1167,19 @@ def main():
         "bound_by": core_bound_by,
         "library_ms": None,
         "ms_spread": core_t[1:], "plain_ms_spread": core_plain_t[1:],
+        "threads_per_env": core_threads,
+        "ptxas": ptxas_new["substep_lin_warps_kernel"],
         "batch": BIG_B,
         "build_s": build_time["substep_lin"],
         "play_megastep_off_return_mean": ret_off,
         "play_megastep_off_steps": PLAY_OFF_STEPS,
-        "play_same_steps_megastep_return_mean": ret_on,
+        "play_at_check_step": {"step": PLAY_CHECK_STEP, "megastep_off": float(off_mid.mean()),
+                               "megastep": float(on_mid.mean()), "largest_rel_gap": mid_rel},
         "play_megastep_off_s": play_off_s,
         "megastep_off_substep_split": split,
     }]
+    print(f"chip_smoke: {time.time() - run_t0:.1f} s in all, of which the megastep-off "
+          f"play {play_off_s:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

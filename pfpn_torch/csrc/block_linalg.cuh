@@ -170,3 +170,172 @@ BL_HD float dot_in_order(const float* a, int sa, const float* b, int sb, int n) 
   return s;
 }
 
+
+// ---- Register-resident Gauss-Jordan, one warp per matrix --------------------
+//
+// Used by spd_inverse.cu and substep_lin.cu (not by megastep.cu). The
+// functions below are the body of the lanes of one or more warps, written so
+// that one host thread can also run several lanes: with `nt` threads, thread
+// `tid` runs the lanes g = tid + q nt for q = 0..LPT-1 (LPT lanes per
+// thread). On the card nt is the block's thread count and LPT = 1, so the
+// per-lane arrays below are registers (every index is a compile-time
+// constant once the loops are unrolled). Lane g belongs to warp g / 32.
+// BL_WSYNC() orders shared memory among the lanes of one warp: __syncwarp()
+// on the card; a source that runs the lanes on several host threads
+// defines it as its per-warp barrier before including this header.
+
+#ifndef BL_WSYNC
+#ifdef __CUDA_ARCH__
+#define BL_WSYNC() __syncwarp()
+#else
+#define BL_WSYNC() ((void)0)
+#endif
+#endif
+
+#ifdef __CUDA_ARCH__
+#define BL_UNROLL _Pragma("unroll")
+#else
+#define BL_UNROLL
+#endif
+
+// 4 floats at p (16-byte aligned in shared memory): one 128-bit access on
+// the card.
+BL_HD void bl_ld4(const float* p, float* x) {
+#ifdef __CUDA_ARCH__
+  const float4 v = *reinterpret_cast<const float4*>(p);
+  x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
+#else
+  for (int u = 0; u < 4; ++u) x[u] = p[u];
+#endif
+}
+
+BL_HD void bl_st4(float* p, float x0, float x1, float x2, float x3) {
+#ifdef __CUDA_ARCH__
+  *reinterpret_cast<float4*>(p) = make_float4(x0, x1, x2, x3);
+#else
+  p[0] = x0; p[1] = x1; p[2] = x2; p[3] = x3;
+#endif
+}
+
+// N floats of a 16-byte-aligned shared row into registers
+template <int N>
+BL_HD void bl_row(const float* p, float* x) {
+  BL_UNROLL
+  for (int i = 0; i + 4 <= N; i += 4) bl_ld4(p + i, x + i);
+  BL_UNROLL
+  for (int i = N & ~3; i < N; ++i) x[i] = p[i];
+}
+
+// sum_k x[k] y[k], k = 0..N-1, in k order (the first product, then one
+// multiply-add per term), with x in registers and y in shared memory
+// (16-byte aligned) read 4 floats at a time.
+template <int N>
+BL_HD float bl_dot_reg(const float* x, const float* y) {
+  float s = 0.0f;
+  BL_UNROLL
+  for (int k0 = 0; k0 < N; k0 += 4) {
+    float t[4];
+    if (k0 + 4 <= N) {
+      bl_ld4(y + k0, t);
+    } else {
+      for (int u = 0; u < 4; ++u) t[u] = k0 + u < N ? y[k0 + u] : 0.0f;
+    }
+    BL_UNROLL
+    for (int u = 0; u < 4; ++u)
+      if (k0 + u < N) s = k0 + u == 0 ? x[0] * t[0] : fmaf(x[k0 + u], t[u], s);
+  }
+  return s;
+}
+
+// How one warp holds an N x N matrix (32 < N <= 64): lane l holds column l
+// whole, and rows l and l + 32 (if < N) of each of the XC = N - 32 last
+// columns, so that every lane does nearly the same work. A pivot's column
+// buffer holds column k, then row k of the last XC columns (LDB floats).
+template <int N> struct BlWarpShape {
+  static_assert(N > 32 && N <= 64, "a warp holds 32 < N <= 64 columns");
+  static constexpr int XC = N - 32;
+  static constexpr int LDB = (N + XC + 3) & ~3;
+};
+
+// In-register unpivoted Gauss-Jordan inverse of one SPD N x N matrix per
+// warp. For lane g (warp g / 32, l = g % 32): c[q][i] is row i of column l,
+// x[q][h][e] row l + 32 h of column 32 + e (zero where l + 32 h >= N); on
+// return they hold the same entries of the inverse. `buf` holds 2 LDB
+// floats per warp (warp w's at buf + 2 LDB w).
+//
+// Pivot k: the holders of column k store it into one half of the warp's
+// double buffer and replace it by e_k, the identity column it stands for
+// (the in-place form of [M | I] -> [I | M^-1]), and the holder of row k
+// stores that row's entries of the last XC columns; after one BL_WSYNC()
+// every lane reads the buffer as broadcasts and updates its entries with
+// the arithmetic of gj_sweep: with 1/d taken once, row k becomes
+// rjd = M[k][j] (1/d) and every other row M[i][j] - M[i][k] rjd (one fused
+// multiply-add). The inverse comes out with its sign, so the final
+// negation of gj_sweep is not needed. The next pivot writes the other half
+// of the buffer, so a pivot costs one sync.
+template <int N, int LPT>
+BL_HD void gj_warp_sweep(float (&c)[LPT][N], float (&x)[LPT][2][BlWarpShape<N>::XC],
+                         float* buf, int tid, int nt) {
+  constexpr int XC = BlWarpShape<N>::XC, LDB = BlWarpShape<N>::LDB;
+  BL_UNROLL
+  for (int k = 0; k < N; ++k) {
+    BL_UNROLL
+    for (int q = 0; q < LPT; ++q) {
+      const int g = tid + q * nt, l = g & 31;
+      float* cb = buf + 2 * LDB * (g >> 5) + (k & 1) * LDB;
+      if (k < 32) {
+        if (l == k) {
+          BL_UNROLL
+          for (int i = 0; i + 4 <= N; i += 4)
+            bl_st4(cb + i, c[q][i], c[q][i + 1], c[q][i + 2], c[q][i + 3]);
+          BL_UNROLL
+          for (int i = N & ~3; i < N; ++i) cb[i] = c[q][i];
+          BL_UNROLL
+          for (int i = 0; i < N; ++i) c[q][i] = i == k ? 1.0f : 0.0f;
+        }
+      } else {     // column k is one of the last XC: each lane holds 1-2 rows
+        cb[l] = x[q][0][k - 32];
+        x[q][0][k - 32] = 0.0f;
+        if (l + 32 < N) {
+          cb[l + 32] = x[q][1][k - 32];
+          x[q][1][k - 32] = l + 32 == k ? 1.0f : 0.0f;
+        }
+      }
+      if (l == (k & 31)) {   // row k of the last XC columns, after the above
+        BL_UNROLL
+        for (int e = 0; e < XC; ++e) cb[N + e] = x[q][k >> 5][e];
+      }
+    }
+    BL_WSYNC();
+    BL_UNROLL
+    for (int q = 0; q < LPT; ++q) {
+      const int g = tid + q * nt, l = g & 31;
+      const float* cb = buf + 2 * LDB * (g >> 5) + (k & 1) * LDB;
+      const float inv_d = 1.0f / cb[k];
+      const float rjd = c[q][k] * inv_d;
+      float rjx[XC];
+      BL_UNROLL
+      for (int i0 = 0; i0 < N + XC; i0 += 4) {
+        float t[4];
+        bl_ld4(cb + i0, t);
+        BL_UNROLL
+        for (int u = 0; u < 4; ++u) {
+          const int i = i0 + u;
+          if (i < N)
+            c[q][i] = i == k ? rjd : fmaf(-t[u], rjd, c[q][i]);
+          else if (i < N + XC)
+            rjx[i - N] = t[u] * inv_d;
+        }
+      }
+      BL_UNROLL
+      for (int h = 0; h < 2; ++h) {
+        const int i = l + 32 * h;
+        if (i >= N) continue;
+        const float ci = cb[i];
+        BL_UNROLL
+        for (int e = 0; e < XC; ++e)
+          x[q][h][e] = i == k ? rjx[e] : fmaf(-ci, rjx[e], x[q][h][e]);
+      }
+    }
+  }
+}

@@ -3,8 +3,11 @@
 Counterpart of ``pfpn_tpu/ops/linalg.py``. The TPU kernel
 ``_spd_inverse_kernel`` (``linalg.py:32``), launched by
 ``_spd_inverse_pallas`` (``:51``), becomes ``csrc/spd_inverse.cu``:
-hand-written CUDA C++ for ``sm_90a``, one thread block per matrix, built
-with ``nvcc`` at first use and bound with ctypes (``ops/_build.py``).
+hand-written CUDA C++ for ``sm_90a``, built with ``nvcc`` at first use and
+bound with ctypes (``ops/_build.py``). For N = 34, the humanoid's dofs, one
+warp inverts each matrix in registers (two matrices per block); every
+other N in 1..63 launches a second kernel of the same source, one thread
+block per matrix in shared memory.
 
 :func:`spd_inverse` and :func:`spd_inverse_pair` dispatch on the tensor's
 device, with no fallback from one to the other:
@@ -36,12 +39,15 @@ _MAX_N = 63      # (3 n^2 + 2n) floats of shared memory must fit in 48 KB
 def _declare(lib, host: bool):
     if host:
         fn = lib.pfpn_spd_inverse_host
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int]
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                       ctypes.c_int]
     else:
         fn = lib.pfpn_spd_inverse_launch
         fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
                        ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    lib.pfpn_spd_inverse_group_threads.argtypes = [ctypes.c_int]
+    lib.pfpn_spd_inverse_group_threads.restype = ctypes.c_int
 
 
 LIBRARY = CudaSource("spd_inverse", _declare, headers=("block_linalg.cuh",))
@@ -71,8 +77,15 @@ def _check(a: torch.Tensor) -> int:
     return a.shape[-1]
 
 
+def group_threads(n: int, host: bool = False) -> int:
+    """Threads that invert one N x N matrix on the card: a warp for N = 34,
+    a 256-thread block for any other N (read from the built source)."""
+    return LIBRARY.load(host=host).pfpn_spd_inverse_group_threads(n)
+
+
 def spd_inverse_kernel(a: torch.Tensor) -> torch.Tensor:
-    """The CUDA kernel on (..., N, N) CUDA tensors."""
+    """The CUDA kernel on (..., N, N) CUDA tensors: the warp kernel for
+    N = 34, the block kernel for every other N."""
     global launches
     n = _check(a)
     if not a.is_cuda:
@@ -91,13 +104,19 @@ def spd_inverse_kernel(a: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def spd_inverse_host(a: torch.Tensor) -> torch.Tensor:
-    """csrc/spd_inverse.cu built with g++, on (..., N, N) CPU tensors."""
+def spd_inverse_host(a: torch.Tensor, threads: int = 1) -> torch.Tensor:
+    """csrc/spd_inverse.cu built with g++, on (..., N, N) CPU tensors.
+
+    ``threads`` host threads run the body of one matrix with a
+    ``std::barrier`` in place of the card's syncs: for N = 34, 1 or 32 (the
+    warp's lanes); for any other N, any count (the block's threads)."""
     n = _check(a)
     a = a.detach().cpu().contiguous()
     out = torch.empty_like(a)
-    LIBRARY.load(host=True).pfpn_spd_inverse_host(
-        a.data_ptr(), out.data_ptr(), a.numel() // (n * n), n)
+    rc = LIBRARY.load(host=True).pfpn_spd_inverse_host(
+        a.data_ptr(), out.data_ptr(), a.numel() // (n * n), n, int(threads))
+    if rc != 0:
+        raise ValueError(f"spd_inverse host build: threads={threads} refused for N={n}")
     return out
 
 

@@ -17,7 +17,11 @@ kernel (``_make_kernel``, ``substep_lin.py:136``, launched by
 ``_substep_core_pallas``) becomes ``csrc/substep_lin.cu``: hand-written
 CUDA C++ for ``sm_90a``, one thread block per environment with its whole
 workspace in shared memory, built with ``nvcc`` at first use and bound with
-ctypes (``ops/_build.py``).
+ctypes (``ops/_build.py``). For the humanoid's shape (34 dofs, 16 contacts,
+8 limit rows) the block is two warps that invert both matrices at once in
+registers; every other shape launches a second kernel of the same source,
+the first design (128 threads, the two inverses one after the other in
+shared memory).
 
 :func:`substep_core` dispatches on the tensor's device, with no fallback
 from one to the other: on ``cuda`` it launches the kernel on the current
@@ -192,13 +196,15 @@ def _declare(lib, host: bool):
     ptrs = [ctypes.c_void_p] * 10
     if host:
         fn = lib.pfpn_substep_lin_host
-        fn.argtypes = ptrs + [ctypes.c_int]
+        fn.argtypes = ptrs + [ctypes.c_int, ctypes.c_int]
     else:
         fn = lib.pfpn_substep_lin_launch
         fn.argtypes = ptrs + [ctypes.c_int, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     lib.pfpn_substep_lin_tables_bytes.argtypes = []
     lib.pfpn_substep_lin_tables_bytes.restype = ctypes.c_int
+    lib.pfpn_substep_lin_block_threads.argtypes = [ctypes.c_void_p]
+    lib.pfpn_substep_lin_block_threads.restype = ctypes.c_int
     if lib.pfpn_substep_lin_tables_bytes() != ctypes.sizeof(SubstepTables):
         raise RuntimeError("SubstepTables layout differs between "
                            "csrc/substep_lin.cu and ops/substep_lin.py")
@@ -224,9 +230,18 @@ def _inputs(meta: SubstepMeta, h, f, kpe, v, rows, target, act_n, act_l):
     return [x.contiguous() for x, _ in want.values()]
 
 
+def block_threads(meta: SubstepMeta, host: bool = False) -> int:
+    """Threads per env on the card for ``meta``, read from the built source:
+    64 (the two-warp kernel) for the humanoid's shape, 128 otherwise."""
+    return LIBRARY.load(host=host).pfpn_substep_lin_block_threads(
+        ctypes.addressof(pack_tables(meta)))
+
+
 def substep_core_kernel(meta: SubstepMeta, h, f, kpe, v, rows, target, act_n,
                         act_l) -> torch.Tensor:
-    """The CUDA kernel on CUDA tensors: v' (B, ndof)."""
+    """The CUDA kernel on CUDA tensors: v' (B, ndof). The launch checks the
+    shape against the two-warp kernel's (34 dofs, 16 contacts, 8 limit rows)
+    and runs the first design's kernel for any other."""
     global launches
     args = _inputs(meta, h, f, kpe, v, rows, target, act_n, act_l)
     if not h.is_cuda:
@@ -245,14 +260,20 @@ def substep_core_kernel(meta: SubstepMeta, h, f, kpe, v, rows, target, act_n,
 
 
 def substep_core_host(meta: SubstepMeta, h, f, kpe, v, rows, target, act_n,
-                      act_l) -> torch.Tensor:
-    """csrc/substep_lin.cu built with g++, on CPU tensors."""
+                      act_l, threads: int = 1) -> torch.Tensor:
+    """csrc/substep_lin.cu built with g++, on CPU tensors.
+
+    ``threads`` host threads run one env's body with ``std::barrier`` in
+    place of the card's syncs: for the humanoid's shape, 1 or 64 (the two
+    warps' lanes); for any other shape, any count (the block's threads)."""
     args = [x.detach().cpu() for x in (h, f, kpe, v, rows, target, act_n, act_l)]
     args = _inputs(meta, *args)
     out = torch.empty_like(args[1])
-    LIBRARY.load(host=True).pfpn_substep_lin_host(
+    rc = LIBRARY.load(host=True).pfpn_substep_lin_host(
         ctypes.addressof(pack_tables(meta)), *(x.data_ptr() for x in args),
-        out.data_ptr(), args[0].shape[0])
+        out.data_ptr(), args[0].shape[0], int(threads))
+    if rc != 0:
+        raise ValueError(f"substep_lin host build: threads={threads} refused")
     return out
 
 
