@@ -42,7 +42,10 @@ Phases, in order; any failure exits non-zero:
    ``substep_lin`` launches and no megastep launch per env step; holds each
    episode's return at step 300 within 1% of phase 4's megastep play at
    the same step (same start states), and the mean return over the 600
-   steps within 5% of the JAX package's 578.53;
+   steps within 5% of the JAX package's 578.53. It runs in a second
+   process (``chip_smoke.py --megastep-off-play``) beside phases 14-16:
+   all four are paced by the host launching small kernels, the card idle
+   most of the time, while the timed phases run alone;
 11. the ``spd_inverse`` paths at B=8192: ``step_log`` (20
    ``spd_inverse_pair`` launches per env step) and torque-control
    ``step_autoreset`` under random normalized torques (20 ``spd_inverse``
@@ -64,7 +67,29 @@ Phases, in order; any failure exits non-zero:
    state; the round time split into rollout (of which the megastep) and
    update; a ``torch.profiler`` window over rollout steps at B=8 (the
    device's busy share, the kernels by device time); then one update from
-   an identical state and trajectory on the card and on the CPU.
+   an identical state and trajectory on the card and on the CPU;
+14. plays the shipped Punch, Kick and MultiTask npz for 10 deterministic
+   episodes of 600 steps from the JAX package's own start phases (its CPU
+   play from ``PRNGKey(0)``, ``TASK_PLAYS``) through ``reset_at``: each
+   mean return within 5% of JAX's, 600 default-variant launches per
+   single-motion play and 1,800 for MultiTask (one per task per step);
+15. one training round through the CLI with ``PFPN_MEGASTEP_LINKS=1`` for
+   ``deepmimic_dppo_gauss`` and ``deepmimic_dppo_dis`` on Walk and
+   ``deepmimic_dppo_pfpn`` on MultiTask: finite losses, ``global_step``
+   16, a checkpoint, 512 ``emit_links`` launches (1,536 for MultiTask) and
+   no other;
+16. ``python -m pfpn_torch`` without ``--train`` on phase 13's run: the
+   trajectory npz in the JAX package's layout, its returns against
+   ``PPO.evaluate``'s from the same start states (1e-4 relative), 600
+   default-variant launches; then the checkpoint exported by
+   ``pfpn_torch.tools.export_policy`` from a scratch working directory
+   and played back against the checkpoint's play at the npz's fp16
+   parameters (1e-4 relative);
+17. MultiTask ``step_autoreset`` at B=8192, random actions in ±0.2, by
+   CUDA events, beside Walk's of phase 5.
+
+Phases run in the order 1-9, 11-13, then 10 (second process) beside 14-16,
+then 17.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``.
@@ -74,6 +99,7 @@ Run from the repository root: ``python3 chip_smoke.py``.
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import copy
 import dataclasses
@@ -88,9 +114,54 @@ from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
 
 NPZ = "results/policies/DeepMimicWalk-v0_deepmimic_dppo_pfpn_particle35_34114_step58608.npz"
-PLAY_OFF_STEPS = 600   # phase 10: the whole play; launch-bound, ~0.7 s per step
+PLAY_OFF_STEPS = 600   # phase 10: the whole play; launch-bound, 0.6-0.9 s per step
 PLAY_CHECK_STEP = 300  # phase 10: the step at which both plays' returns are compared
 JAX_PLAY_RETURN = 578.53   # tools/export_policy.py --play, JAX on the CPU (PERF.md)
+# phase 14: the JAX package's own deterministic play of each shipped npz from
+# PRNGKey(0) split 10 ways (tools/export_policy.py --play), JAX on the CPU:
+# each episode's start time and return, and the mean from PRNGKey(1) (JAX's
+# spread over start states), printed by
+#   JAX_PLATFORMS=cpu python tests/test_torch_eval.py --keys 0 1
+TASK_PLAYS = {
+    "DeepMimicPunch-v0": {
+        "npz": ("results/policies/DeepMimicPunch-v0_deepmimic_dppo_pfpn_particle35_34114"
+                "_step58608.npz"),
+        "init_time": [1.7969350814819336, 0.015560135245323181, 1.925223708152771,
+                      0.5695769786834717, 0.3277955949306488, 1.5745272636413574,
+                      1.8723961114883423, 1.0134310722351074, 0.552929162979126,
+                      1.1279739141464233],
+        "jax_return": [538.1904296875, 527.925537109375, 538.9833374023438, 531.2174072265625,
+                       538.6573486328125, 531.3416137695312, 530.8353881835938,
+                       538.240966796875, 537.4513549804688, 537.3148193359375],
+        "jax_return_mean_key1": 537.8265,
+    },
+    "DeepMimicKick-v0": {
+        "npz": ("results/policies/DeepMimicKick-v0_deepmimic_dppo_pfpn_particle35_34114"
+                "_step58608.npz"),
+        "init_time": [1.2915470600128174, 0.011183847673237324, 1.3837546110153198,
+                      0.40938347578048706, 0.23560309410095215, 1.1316914558410645,
+                      1.3457846641540527, 0.7284035682678223, 0.3974178433418274,
+                      0.8107312321662903],
+        "jax_return": [494.5573425292969, 486.4681396484375, 489.6986999511719,
+                       495.4397888183594, 479.3435974121094, 486.4698181152344,
+                       492.2274169921875, 489.4569091796875, 491.1820373535156,
+                       493.95355224609375],
+        "jax_return_mean_key1": 444.5187,
+    },
+    "DeepMimicMultiTask-v0": {   # 4 Walk, 3 Punch, 3 Kick episodes
+        "npz": ("results/policies/DeepMimicMultiTask-v0_deepmimic_dppo_pfpn_particle35_34114"
+                "_step175792.npz"),
+        "init_time": [1.0668885707855225, 0.009238469414412975, 1.1430569887161255,
+                      0.33817312121391296, 0.3277955949306488, 1.5745272636413574,
+                      1.8723961114883423, 0.7284035682678223, 0.3974178433418274,
+                      0.8107312321662903],
+        "jax_return": [584.1072387695312, 583.3591918945312, 583.8582763671875,
+                       583.7221069335938, 549.2179565429688, 549.4478149414062,
+                       546.4425048828125, 473.158935546875, 477.0616760253906,
+                       481.340576171875],
+        "jax_return_mean_key1": 541.1686,
+    },
+}
 FP32_PEAK = 67e12      # H100 SXM fp32 outside the tensor cores, FLOP/s
 HBM_RATE = 3.35e12     # H100 SXM device memory, bytes/s
 BIG_B = 8192
@@ -259,6 +330,55 @@ class ReturnRecorder:
         return ret
 
 
+def megastep_off_play(rec_path: str, out_path: str):
+    """Phase 10, run by ``main`` in a second process: the shipped Walk npz
+    played for PLAY_OFF_STEPS steps with the env's engine built with
+    ``EngineConfig(megastep=False)``; each episode's return at
+    PLAY_CHECK_STEP against phase 4's megastep play from the same start
+    states (its per-step rewards in ``rec_path``). Writes the numbers to
+    ``out_path``; ``main`` checks them."""
+    import torch
+
+    import pfpn_torch
+    from pfpn_torch.harness.build import build_algo
+    from pfpn_torch.harness.settings import build
+    from pfpn_torch.ops import linalg
+    from pfpn_torch.ops import substep_lin as sl
+    from pfpn_torch.sim.engine import Engine
+    from pfpn_torch.tools.export_policy import load_policy, play
+
+    dev = pfpn_torch.resolve_device("cuda")
+    algo = build_algo(build("deepmimic_dppo_pfpn", particles=35), dev)
+    load_policy(algo, NPZ)
+    eng = algo.env.engine
+    algo.env.engine = Engine(eng.tree, dataclasses.replace(eng.config, megastep=False),
+                             eng.gains)
+    rec_on = ReturnRecorder(None)
+    saved = torch.load(rec_path)
+    rec_on.rewards, rec_on.dones = saved["rewards"], saved["dones"]
+    rec_off = ReturnRecorder(algo.env.step_batch)
+    eng.mega.launches = eng.mega.launches_links = linalg.launches = sl.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with mock.patch.object(algo.env, "step_batch", rec_off):
+        res = play(NPZ, episodes=10, max_steps=PLAY_OFF_STEPS, seed=0, algo=algo)
+    torch.cuda.synchronize()
+    wall = time.time() - t0
+    counts = {"megastep": eng.mega.launches, "megastep_emit_links": eng.mega.launches_links,
+              "spd_inverse": linalg.launches, "substep_lin": sl.launches}
+    rew = res["reward"].cpu()
+    # both plays at PLAY_CHECK_STEP: the same start states (seed 0)
+    on_mid, off_mid = rec_on.returns_at(PLAY_CHECK_STEP), rec_off.returns_at(PLAY_CHECK_STEP)
+    gap = (off_mid - on_mid).abs()
+    with open(out_path, "w") as fh:
+        json.dump({"return_mean": float(rew.mean()), "return_min": float(rew.min()),
+                   "return_max": float(rew.max()), "finite": bool(torch.isfinite(rew).all()),
+                   "env_steps": int(res["frames"].max()), "launches": counts, "wall_s": wall,
+                   "mid_off": float(off_mid.mean()), "mid_on": float(on_mid.mean()),
+                   "mid_gap": float(gap.max()), "mid_rel": float((gap / on_mid.abs()).max())},
+                  fh)
+
+
 def main():
     import torch
 
@@ -336,6 +456,24 @@ def main():
             ("megastep", "spd_inverse", "substep_lin"), counted)}
         out["megastep_emit_links"] = counted[0].launches_links
         return out
+
+    def env_megasteps(env):
+        """The megastep of each engine of an env: a wrapped env's, or each
+        task's of the multi-task env."""
+        base = getattr(env, "env", env)
+        return [e.engine.mega for e in getattr(base, "envs", [base])]
+
+    def zero_counts(env):
+        """Every launch count of an env's path set to 0."""
+        for m in env_megasteps(env):
+            m.launches = m.launches_links = 0
+        linalg.launches = sl.launches = 0
+
+    def path_counts(env) -> dict:
+        megas = env_megasteps(env)
+        return {"megastep": sum(m.launches for m in megas),
+                "megastep_emit_links": sum(m.launches_links for m in megas),
+                "spd_inverse": linalg.launches, "substep_lin": sl.launches}
 
     # ---- 3. kernel vs plain -----------------------------------------------
     env = make("DeepMimicWalk-v0", device=dev)
@@ -456,6 +594,9 @@ def main():
         res = play(NPZ, episodes=10, max_steps=600, seed=0, algo=algo)
     torch.cuda.synchronize()
     play_s = time.time() - t0
+    work = tempfile.TemporaryDirectory()      # phase 10's input and output, phase 13's run
+    rec_path = os.path.join(work.name, "play_megastep.pt")
+    torch.save({"rewards": rec_on.rewards, "dones": rec_on.dones}, rec_path)
     launches = main_mega.launches
     acting_counts = counts()
     rew = res["reward"].cpu()
@@ -732,47 +873,6 @@ def main():
     check(share_off <= 0.02, f"control step, megastep off: {share_off:.2%} of envs "
           "beyond the bounds")
 
-    # ---- 10. the megastep-off path: play ---------------------------------------------
-    acting_engine = algo.env.engine
-    algo.env.engine = Engine(tree, dataclasses.replace(acting_engine.config, megastep=False),
-                             acting_engine.gains)
-    reset_counts()
-    torch.cuda.synchronize()
-    t0 = time.time()
-    rec_off = ReturnRecorder(algo.env.step_batch)
-    with mock.patch.object(algo.env, "step_batch", rec_off):
-        res_off = play(NPZ, episodes=10, max_steps=PLAY_OFF_STEPS, seed=0, algo=algo)
-    torch.cuda.synchronize()
-    play_off_s = time.time() - t0
-    off_counts = counts()
-    algo.env.engine = acting_engine
-    rew_off = res_off["reward"].cpu()
-    steps_off = int(res_off["frames"].max())
-    ret_off = float(rew_off.mean())
-    # both plays at PLAY_CHECK_STEP: the same start states (seed 0), phase 4's
-    # megastep play and this one
-    on_mid, off_mid = rec_on.returns_at(PLAY_CHECK_STEP), rec_off.returns_at(PLAY_CHECK_STEP)
-    mid_gap = (off_mid - on_mid).abs()
-    mid_rel = float((mid_gap / on_mid.abs()).max())
-    print(f"play, megastep off: 10 deterministic Walk episodes of {PLAY_OFF_STEPS} steps in "
-          f"{play_off_s:.1f} s: return mean {ret_off:.2f} min {float(rew_off.min()):.2f} max "
-          f"{float(rew_off.max()):.2f} (JAX {JAX_PLAY_RETURN}); at step {PLAY_CHECK_STEP} "
-          f"mean {float(off_mid.mean()):.2f} against the megastep play's "
-          f"{float(on_mid.mean()):.2f}, largest per-episode gap {float(mid_gap.max()):.3f} "
-          f"({mid_rel:.3%} of that episode's); {steps_off} env steps, launches {off_counts}")
-    check(bool(torch.isfinite(rew_off).all()), "play, megastep off: return not finite")
-    check(off_counts == {"megastep": 0, "megastep_emit_links": 0, "spd_inverse": 0,
-                         "substep_lin": meta.frame_skip * steps_off},
-          f"play, megastep off: launches {off_counts} for {steps_off} env steps")
-    check(steps_off == PLAY_OFF_STEPS, f"play, megastep off: {steps_off} env steps")
-    # control steps of the two paths agree to 2e-4 in positions (phase 9): over
-    # 300 steps the returns, ~290, agree to a few hundredths
-    check(mid_rel <= 0.01,
-          f"play, megastep off: an episode's return at step {PLAY_CHECK_STEP} is "
-          f"{mid_rel:.3%} from the megastep play's, more than 1%")
-    check(abs(ret_off - JAX_PLAY_RETURN) <= 0.05 * JAX_PLAY_RETURN,
-          f"play, megastep off: return {ret_off:.2f}, more than 5% from {JAX_PLAY_RETURN}")
-
     # ---- 11. the spd_inverse paths at B=8192 -----------------------------------------
     g = torch.Generator(device=dev).manual_seed(15)
     log_state, _ = env.reset_batch(BIG_B, g)
@@ -963,7 +1063,8 @@ def main():
         return out
 
     n_spd, n_sl = linalg.launches, sl.launches
-    with megastep_links_on(), tempfile.TemporaryDirectory() as root, \
+    root = os.path.join(work.name, "train")     # phase 16 evaluates its checkpoint
+    with megastep_links_on(), \
             mock.patch.object(PPO, "rollout", timed_rollout), \
             mock.patch.object(PPO, "update", timed_update), \
             mock.patch.object(ms.Megastep, "kernel", timed_kernel):
@@ -1092,6 +1193,268 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
     print(f"after training: clocks.sm, power.draw, temperature: {clocks}")
 
+    # ---- 10. the megastep-off path: play, in a second process ---------------------------
+    # launch-bound on the host like phases 14-16, so the two run side by side
+    # (the card is idle most of the time in both); timed phases stay alone
+    off_path = os.path.join(work.name, "play_megastep_off.json")
+    off_log = open(os.path.join(work.name, "play_megastep_off.log"), "w+")
+    off_proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--megastep-off-play", rec_path, off_path],
+        stdout=off_log, stderr=subprocess.STDOUT)
+    atexit.register(lambda: off_proc.poll() is None and off_proc.kill())
+    t_side = time.time()
+
+    # ---- 14. play the shipped Punch, Kick and MultiTask policies ----------------------
+    import numpy as np
+
+    task_plays, play_faults = {}, []
+    for env_name, ref in TASK_PLAYS.items():
+        algo_p = build_algo(build("deepmimic_dppo_pfpn", particles=35, env=env_name), dev)
+        load_policy(algo_p, ref["npz"])
+        n_tasks = len(env_megasteps(algo_p.env))
+        init_time = torch.tensor(ref["init_time"], device=dev)
+        zero_counts(algo_p.env)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        out_p = play(ref["npz"], episodes=len(ref["init_time"]), max_steps=600, algo=algo_p,
+                   init_time=init_time)
+        torch.cuda.synchronize()
+        wall = time.time() - t0
+        c = path_counts(algo_p.env)
+        rew_p = out_p["reward"].cpu().numpy()
+        frames_p = out_p["frames"].cpu().numpy()
+        steps_p = int(frames_p.max())
+        jax_ret = np.asarray(ref["jax_return"])
+        mean, jax_mean = float(rew_p.mean()), float(jax_ret.mean())
+        rel = abs(mean - jax_mean) / jax_mean
+        row = {"return_mean": mean, "jax_return_mean": jax_mean, "rel": rel,
+               "jax_return_mean_key1": ref["jax_return_mean_key1"],
+               "returns": rew_p.tolist(), "frames": frames_p.tolist(), "wall_s": wall,
+               "launches": c, "env_steps": steps_p}
+        text = ""
+        if n_tasks > 1:
+            ids = algo_p.env.task_ids(len(rew_p))
+            row["per_task"] = {m: float(rew_p[ids == k].mean())
+                               for k, m in enumerate(algo_p.env.motions)}
+            row["jax_per_task"] = {m: float(jax_ret[ids == k].mean())
+                                   for k, m in enumerate(algo_p.env.motions)}
+            text = (f"; per task {json.dumps(row['per_task'])} (JAX "
+                    f"{json.dumps(row['jax_per_task'])})")
+        task_plays[env_name] = row
+        print(f"play {env_name}: 10 deterministic episodes from JAX's PRNGKey(0) start times "
+              f"in {wall:.1f} s [{card}]: return mean {mean:.2f} against JAX's {jax_mean:.2f} "
+              f"on the CPU ({rel:.2%}; JAX from PRNGKey(1): {ref['jax_return_mean_key1']:.2f})"
+              f"{text}; per episode {[round(float(x), 2) for x in rew_p]}, frames "
+              f"{frames_p.tolist()}; {steps_p} env steps, launches {c}")
+        check(bool(np.isfinite(rew_p).all()), f"play {env_name}: return not finite")
+        check(steps_p == 600 and c == {"megastep": 600 * n_tasks, "megastep_emit_links": 0,
+                                     "spd_inverse": 0, "substep_lin": 0},
+              f"play {env_name}: launches {c} for {steps_p} env steps of {n_tasks} task(s)")
+        if rel > 0.05:
+            play_faults.append(f"play {env_name}: return {mean:.2f}, {rel:.2%} from JAX's "
+                               f"{jax_mean:.2f}, more than 5%")
+        del algo_p
+    check(not play_faults, "; ".join(play_faults))
+
+    # ---- 15. one training round of each new preset through the CLI ------------------
+    new_rounds = {}
+    for setting, env_name in (("deepmimic_dppo_gauss", "DeepMimicWalk-v0"),
+                              ("deepmimic_dppo_dis", "DeepMimicWalk-v0"),
+                              ("deepmimic_dppo_pfpn", "DeepMimicMultiTask-v0")):
+        timing["rollout_s"].clear()
+        timing["update_s"].clear()
+        linalg.launches = sl.launches = 0
+        with megastep_links_on(), tempfile.TemporaryDirectory() as root_n, \
+                mock.patch.object(PPO, "rollout", timed_rollout), \
+                mock.patch.object(PPO, "update", timed_update):
+            t0 = time.time()
+            algo_n, state_n = cli.main(
+                ["--env", env_name, "--setting", setting, "--particles", "35", "--seed",
+                 str(seed), "--train", "--max_rounds", "1", "--root", root_n])
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            cfg_n = build(setting, particles=35, env=env_name, seed=seed)
+            with open(os.path.join(cfg_n.log_dir(root_n), "metrics.jsonl")) as fh:
+                recs = [json.loads(line) for line in fh]
+            ckpt_n = CheckpointManager(cfg_n.checkpoint_dir(root_n)).steps()
+        c = path_counts(algo_n.env)
+        n_tasks = len(env_megasteps(algo_n.env))
+        round_s = sum(timing["rollout_s"]) + sum(timing["update_s"])
+        losses_n = {k: [r[k] for r in recs if k in r] for k in (
+            "train/loss", "train/policy_loss", "train/value_loss", "train/episode_reward")}
+        new_rounds[f"{setting}@{env_name}"] = {
+            "wall_s": wall, "round_s": round_s, "rollout_s": sum(timing["rollout_s"]),
+            "update_s": sum(timing["update_s"]),
+            "samples_per_s": state_n.total_samples / round_s, "launches": c,
+            "global_step": state_n.global_step, "losses": losses_n, "checkpoints": ckpt_n}
+        print(f"training {setting} on {env_name}, 1 round of 8 envs x 512 steps through the "
+              f"CLI [{card}]: {wall:.1f} s; round {round_s:.2f} s (rollout "
+              f"{sum(timing['rollout_s']):.2f} s, update {sum(timing['update_s']):.2f} s), "
+              f"{state_n.total_samples / round_s:.1f} samples/s; launches {c}; global_step "
+              f"{state_n.global_step}; losses {json.dumps(losses_n)}")
+        check(c == {"megastep": 0, "megastep_emit_links": 512 * n_tasks, "spd_inverse": 0,
+                    "substep_lin": 0},
+              f"training {setting} on {env_name}: launches {c}, want {512 * n_tasks} of "
+              f"emit_links and nothing else")
+        check(state_n.global_step == 16 and state_n.total_samples == 4096,
+              f"training {setting}: global_step {state_n.global_step}, total_samples "
+              f"{state_n.total_samples}")
+        check(all(len(v) == 1 and all(math.isfinite(x) for x in v) for v in losses_n.values()),
+              f"training {setting}: losses not finite or not logged: {losses_n}")
+        check(ckpt_n == [16], f"training {setting}: checkpoints {ckpt_n}")
+        del algo_n, state_n
+
+    # ---- 16. evaluation through the CLI, and the export --------------------------------
+    from pfpn_torch.harness import eval as eval_mod
+    from pfpn_torch.tools import export_policy
+
+    eval_algos = []
+
+    def capturing_build_algo(*args, **kwargs):
+        eval_algos.append(build_algo(*args, **kwargs))
+        zero_counts(eval_algos[-1].env)
+        return eval_algos[-1]
+
+    linalg.launches = sl.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with mock.patch.object(eval_mod, "build_algo", capturing_build_algo):
+        traj_path, traj_ret = cli.main(
+            ["--env", "DeepMimicWalk-v0", "--setting", "deepmimic_dppo_pfpn", "--particles", "35",
+             "--seed", str(seed), "--root", root])
+    torch.cuda.synchronize()
+    eval_s = time.time() - t0
+    eval_counts = path_counts(eval_algos[0].env)
+    with np.load(traj_path) as z:
+        shapes = {k: list(z[k].shape) for k in z.files}
+        traj_finite = bool(np.isfinite(z["link_pos"]).all() and np.isfinite(z["link_quat"]).all())
+    algo_c = build_algo(cfg, dev)
+    ckpt.restore_latest(algo_c.init_state(torch.Generator(device=dev).manual_seed(seed)))
+
+    def eval3(a):
+        out = a.evaluate(num_episodes=3, max_steps=600,
+                         generator=torch.Generator(device=dev).manual_seed(seed))
+        return out["reward"].cpu().numpy()
+
+    ev_ret = eval3(algo_c)
+    eval_rel = float(np.max(np.abs(traj_ret - ev_ret) / np.abs(ev_ret)))
+    print(f"evaluation through the CLI (no --train) of phase 13's checkpoint [{card}]: "
+          f"{eval_s:.1f} s; trajectory {json.dumps(shapes)}; returns {traj_ret.tolist()}, "
+          f"PPO.evaluate from the same start states {ev_ret.tolist()} (largest relative gap "
+          f"{eval_rel:.3g}); launches {eval_counts}")
+    check(shapes.get("link_pos") == [600, 3, 15, 3] and shapes.get("link_quat") == [600, 3, 15, 4]
+          and shapes.get("done") == [600, 3] and "link_names" in shapes and traj_finite,
+          f"evaluation: trajectory {shapes}, finite {traj_finite}")
+    check(eval_rel <= 1e-4, f"evaluation: returns {eval_rel:.3g} from evaluate's, more than 1e-4")
+    check(eval_counts == {"megastep": 600, "megastep_emit_links": 0, "spd_inverse": 0,
+                          "substep_lin": 0}, f"evaluation: launches {eval_counts}")
+
+    # the same checkpoint exported from a scratch working directory, played back
+    # against the checkpoint's own play with its parameters at the npz's fp16
+    policies = sorted(os.listdir("results/policies"))
+    with tempfile.TemporaryDirectory() as cwd_tmp, contextlib.chdir(cwd_tmp):
+        npz_path = os.path.abspath(export_policy.main(
+            ["--env", "DeepMimicWalk-v0", "--setting", "deepmimic_dppo_pfpn", "--particles",
+             "35", "--seed", str(seed), "--root", root]))
+        check(npz_path.endswith(f"results/policies/DeepMimicWalk-v0_deepmimic_dppo_pfpn"
+                                f"_particle35_{seed}_step32.npz"), f"export: {npz_path}")
+        algo_x = build_algo(cfg, dev)
+        load_policy(algo_x, npz_path)
+        x_ret = eval3(algo_x)
+    check(sorted(os.listdir("results/policies")) == policies,
+          "export: the repository's results/policies/ changed")
+    with torch.no_grad():
+        for p in algo_c.net.parameters():
+            p.copy_(p.half().float())
+    same_npz = all(torch.equal(a, b) for a, b in zip(algo_c.net.state_dict().values(),
+                                                     algo_x.net.state_dict().values()))
+    c16_ret = eval3(algo_c)
+    export_rel = float(np.max(np.abs(x_ret - c16_ret) / np.abs(c16_ret)))
+    print(f"export of the checkpoint, {os.path.basename(npz_path)}, played back: returns "
+          f"{x_ret.tolist()} against "
+          f"the checkpoint's play at the npz's fp16 parameters {c16_ret.tolist()} (largest "
+          f"relative gap {export_rel:.3g}) and at its own fp32 ones {ev_ret.tolist()}")
+    check(same_npz, "export: the npz does not load the checkpoint's fp16 parameters")
+    check(export_rel <= 1e-4, f"export: returns {export_rel:.3g} from the checkpoint's play")
+    del algo_c, algo_x, eval_algos
+
+    # ---- 10, joined ----------------------------------------------------------------------
+    side_s = time.time() - t_side
+    off_rc = off_proc.wait(timeout=1500)
+    off_log.seek(0)
+    print(off_log.read(), end="")
+    off_log.close()
+    check(off_rc == 0, f"play, megastep off: the second process exited with {off_rc}")
+    with open(off_path) as fh:
+        off = json.load(fh)
+    ret_off, off_counts, play_off_s = off["return_mean"], off["launches"], off["wall_s"]
+    steps_off, mid_rel = off["env_steps"], off["mid_rel"]
+    print(f"play, megastep off: 10 deterministic Walk episodes of {PLAY_OFF_STEPS} steps in "
+          f"{play_off_s:.1f} s, in a second process beside phases 14-16 ({side_s:.1f} s): "
+          f"return mean {ret_off:.2f} min {off['return_min']:.2f} max {off['return_max']:.2f} "
+          f"(JAX {JAX_PLAY_RETURN}); at step {PLAY_CHECK_STEP} mean {off['mid_off']:.2f} against "
+          f"the megastep play's {off['mid_on']:.2f}, largest per-episode gap "
+          f"{off['mid_gap']:.3f} ({mid_rel:.3%} of that episode's); {steps_off} env steps, "
+          f"launches {off_counts}")
+    check(off["finite"], "play, megastep off: return not finite")
+    check(off_counts == {"megastep": 0, "megastep_emit_links": 0, "spd_inverse": 0,
+                         "substep_lin": meta.frame_skip * steps_off},
+          f"play, megastep off: launches {off_counts} for {steps_off} env steps")
+    check(steps_off == PLAY_OFF_STEPS, f"play, megastep off: {steps_off} env steps")
+    # control steps of the two paths agree to 2e-4 in positions (phase 9): over
+    # 300 steps the returns, ~290, agree to a few hundredths
+    check(mid_rel <= 0.01,
+          f"play, megastep off: an episode's return at step {PLAY_CHECK_STEP} is "
+          f"{mid_rel:.3%} from the megastep play's, more than 1%")
+    check(abs(ret_off - JAX_PLAY_RETURN) <= 0.05 * JAX_PLAY_RETURN,
+          f"play, megastep off: return {ret_off:.2f}, more than 5% from {JAX_PLAY_RETURN}")
+    work.cleanup()
+
+    # ---- 17. MultiTask throughput at B=8192 ----------------------------------------------
+    mt = make("DeepMimicMultiTask-v0", device=dev)
+    g = torch.Generator(device=dev).manual_seed(21)
+    mstate = {"s": mt.reset_batch(BIG_B, g)[0]}
+
+    def mt_step():
+        a = torch.rand(BIG_B, mt.action_size, generator=g, device=dev) * 0.4 - 0.2
+        mstate["s"] = mt.step_autoreset(mstate["s"], a, g)[0]
+
+    zero_counts(mt)
+    mt_ms = cuda_ms(mt_step, warm=2, reps=n_steps)
+    mt_counts = path_counts(mt)
+    timing["kernel_events"].clear()
+    with mock.patch.object(ms.Megastep, "kernel", timed_kernel):
+        mt_step()
+    torch.cuda.synchronize()
+    mt_kernel_ms = [e0.elapsed_time(e1) for e0, e1 in timing["kernel_events"]]
+    mt_sps = BIG_B / (mt_ms / 1e3)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            mt_step()
+        torch.cuda.synchronize()
+    mt_profile = profile_summary(prof, 2)
+    if mt_profile["device_time"]:
+        print(f"MultiTask step_autoreset, 2 steps at B={BIG_B} under torch.profiler [{card}]: "
+              f"window {mt_profile['window_ms']:.2f} ms, device busy "
+              f"{mt_profile['busy_ms']:.2f} ms ({mt_profile['busy_share']:.1%}), "
+              f"{mt_profile['kernels_per_step']:.0f} kernel launches per env step")
+        for row in mt_profile["top"]:
+            print(f"  {row['ms']:9.3f} ms  {row['calls']:6d} calls  {row['kernel']}")
+    print(f"step_autoreset MultiTask B={BIG_B} (slices {mt._sizes(BIG_B)}), random actions in "
+          f"+-0.2 [{card}]: {mt_sps:.0f} env steps/s ({mt_ms:.2f} ms per step; the three "
+          f"megastep launches {[round(x, 3) for x in mt_kernel_ms]} ms) against Walk's "
+          f"{sps:.0f} ({step_ms:.2f} ms, megastep {kernel_ms:.3f} ms) in phase 5; launches "
+          f"{mt_counts} for {2 + n_steps} steps")
+    check(mt_counts == {"megastep": 3 * (2 + n_steps), "megastep_emit_links": 0,
+                        "spd_inverse": 0, "substep_lin": 0}, f"MultiTask: launches {mt_counts}")
+    check(all(bool(torch.isfinite(getattr(mstate["s"].sim, k)).all()) for k in pos + vel),
+          "MultiTask step_autoreset: state not finite")
+    del mt, mstate
+    clocks = subprocess.run(
+        ["nvidia-smi", "-i", "0", "--query-gpu=clocks.sm,power.draw,temperature.gpu",
+         "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
+    print(f"after the task phases: clocks.sm, power.draw, temperature: {clocks}")
+
     # ---- report -------------------------------------------------------------
     kernels = [{
         "name": "megastep",
@@ -1099,9 +1462,17 @@ def main():
         "source": "pfpn_torch/csrc/megastep.cu",
         "replaces": "pfpn_tpu/ops/megastep.py:278",
         "tpu_kernel": "pfpn_tpu/ops/megastep.py:_make_kernel",
-        "launches": launches + train_counts["megastep_emit_links"],
-        "launches_by_variant": {"default": {"play": launches},
-                                "emit_links": {"train": train_counts["megastep_emit_links"]}},
+        "launches": (launches + train_counts["megastep_emit_links"]
+                     + sum(r["launches"]["megastep"] for r in task_plays.values())
+                     + sum(r["launches"]["megastep_emit_links"] for r in new_rounds.values())
+                     + eval_counts["megastep"]),
+        "launches_by_variant": {
+            "default": {"play": launches, "eval_cli": eval_counts["megastep"],
+                        **{f"play_{k}": r["launches"]["megastep"]
+                           for k, r in task_plays.items()}},
+            "emit_links": {"train": train_counts["megastep_emit_links"],
+                           **{f"train_{k}": r["launches"]["megastep_emit_links"]
+                              for k, r in new_rounds.items()}}},
         "max_abs_err": max(v for k, v in e1.items() if k != "flags"),
         "max_err": max_err,
         "ms": kernel_ms,
@@ -1127,6 +1498,12 @@ def main():
         "env_steps_per_s": sps,
         "policy_env_steps_per_s": psps,
         "play_return_mean": float(rew.mean()),
+        "task_plays": task_plays,
+        "train_new_presets": new_rounds,
+        "eval_cli": {"s": eval_s, "returns": traj_ret.tolist(), "evaluate": ev_ret.tolist(),
+                     "rel": eval_rel, "export_rel": export_rel},
+        "multitask_env_steps_per_s": mt_sps, "multitask_step_ms": mt_ms,
+        "multitask_megastep_ms": mt_kernel_ms, "multitask_profile": mt_profile,
     }, {
         "name": "spd_inverse",
         "route": "cuda",
@@ -1173,9 +1550,10 @@ def main():
         "build_s": build_time["substep_lin"],
         "play_megastep_off_return_mean": ret_off,
         "play_megastep_off_steps": PLAY_OFF_STEPS,
-        "play_at_check_step": {"step": PLAY_CHECK_STEP, "megastep_off": float(off_mid.mean()),
-                               "megastep": float(on_mid.mean()), "largest_rel_gap": mid_rel},
+        "play_at_check_step": {"step": PLAY_CHECK_STEP, "megastep_off": off["mid_off"],
+                               "megastep": off["mid_on"], "largest_rel_gap": mid_rel},
         "play_megastep_off_s": play_off_s,
+        "play_megastep_off_beside": "phases 14-16, in a second process",
         "megastep_off_substep_split": split,
     }]
     print(f"chip_smoke: {time.time() - run_t0:.1f} s in all, of which the megastep-off "
@@ -1188,4 +1566,7 @@ def main():
 
 if __name__ == "__main__":
     os.chdir(os.path.dirname(os.path.abspath(__file__)))
-    main()
+    if sys.argv[1:2] == ["--megastep-off-play"]:
+        megastep_off_play(*sys.argv[2:4])
+    else:
+        main()

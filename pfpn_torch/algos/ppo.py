@@ -12,7 +12,9 @@ takes the place of ``PPOState.key``.
 Semantics, as in the JAX package:
 
 * rollout stores the *unclipped* sampled action and its log-prob; the env
-  receives the action clipped to its bounds;
+  receives the action clipped to its bounds, or as it is when the env has
+  none (the discrete wrapper: the categorical head's integer actions keep
+  their type through the trajectory and the loss);
 * GAE bootstraps 0 on true terminals and V(next pre-reset state) on
   truncation and unroll boundaries;
 * advantages are normalized per minibatch when configured; the value
@@ -22,8 +24,9 @@ Semantics, as in the JAX package:
   critic learning rates agree, a group each otherwise (``ppo.py:88-100``);
 * observation-normalizer updates use the first epoch's minibatches only,
   with the (1 + s) / (10 + s) decay at the new optimizer step;
-* PFPN activation accumulators update on every sampling forward pass;
-  resampling runs on the optimizer-step counter.
+* with the particle head, its activation accumulators update on every
+  sampling forward pass and resampling runs on the optimizer-step counter;
+  the Gaussian and categorical heads carry no statistics.
 
 Counters (``global_step``, ``total_samples``) are Python ints.
 """
@@ -151,6 +154,10 @@ class PPO:
 
     # -- rollout ---------------------------------------------------------
     def _clip_action(self, a: torch.Tensor) -> torch.Tensor:
+        """The action clipped to the env's bounds; unchanged when the env
+        has none (ppo.py:135-140)."""
+        if getattr(self.env, "action_low", None) is None:
+            return a
         return torch.clamp(a, const(self.env.action_low, a),
                            const(self.env.action_high, a))
 
@@ -164,7 +171,8 @@ class PPO:
         steps: Dict[str, List[torch.Tensor]] = {k: [] for k in TRAJ_KEYS}
         for _ in range(cfg.unroll_length):
             a, lp, v, aux = net.act(obs, state.generator)
-            stats = update_activation_stats(stats, aux["probs"])
+            if net.is_pfpn:
+                stats = update_activation_stats(stats, aux["probs"])
             env_state, next_obs, res = env.step_autoreset(
                 env_state, self._clip_action(a), state.generator)
             v_next = net.value(res.obs)            # the pre-reset observation
@@ -238,7 +246,7 @@ class PPO:
                 if ncfg.normalize_state and epoch == 0:
                     # first epoch only (sync_model.py:103-149)
                     net.norm.update_moving_average(batch["obs"], gstep)
-                if ncfg.head.resample:
+                if net.is_pfpn and ncfg.head.resample:
                     stats = maybe_resample(ncfg.head, net.head, stats, state.generator)
                 metrics["loss"] = loss.detach()
                 per_mb.append(metrics)
@@ -260,12 +268,18 @@ class PPO:
     # -- deterministic evaluation --------------------------------------------
     @torch.no_grad()
     def evaluate(self, num_episodes: int = 10, max_steps: int = 600,
-                 generator: Optional[torch.Generator] = None) -> dict:
-        """Deterministic episodes (ppo.py:312); stops early once every
-        episode is done (later steps would add nothing). Returns per-episode
-        ``reward``, ``frames`` and ``finished``."""
+                 generator: Optional[torch.Generator] = None,
+                 init_time: Optional[torch.Tensor] = None) -> dict:
+        """Deterministic episodes (ppo.py:312), started at phases drawn from
+        ``generator`` or, when given, at the times ``init_time``
+        (``num_episodes``,); stops early once every episode is done (later
+        steps would add nothing). Returns per-episode ``reward``, ``frames``
+        and ``finished``."""
         env = self.env
-        state, obs = env.reset_batch(num_episodes, generator)
+        if init_time is None:
+            state, obs = env.reset_batch(num_episodes, generator)
+        else:
+            state, obs = env.reset_at(init_time)
         ret = torch.zeros(num_episodes, device=obs.device)
         frames = torch.zeros(num_episodes, dtype=torch.int32, device=obs.device)
         done = torch.zeros(num_episodes, dtype=torch.bool, device=obs.device)

@@ -21,6 +21,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from . import categorical
+
 _LOG_2PI = math.log(2.0 * math.pi)
 
 
@@ -66,20 +68,14 @@ def log_prob(logits: torch.Tensor, loc: torch.Tensor, scale: torch.Tensor,
 
 def entropy(logits: torch.Tensor) -> torch.Tensor:
     """Per-dimension particle-weight entropy [..., D] (particle.py:81)."""
-    v = logits - torch.amax(logits, dim=-1, keepdim=True)
-    s0 = torch.exp(v)
-    s1 = torch.sum(s0, dim=-1, keepdim=True)
-    p = s0 / s1
-    return torch.sum(p * (torch.log(s1) - v), dim=-1)
+    return categorical.entropy(logits)
 
 
 def sample_indices(logits: torch.Tensor,
                    generator: Optional[torch.Generator]) -> torch.Tensor:
     """Particle choice per dimension, [..., D] int64, drawn from the
     categorical of ``logits`` by the Gumbel-max trick."""
-    u = torch.rand(logits.shape, generator=generator, device=logits.device)
-    gumbel = -torch.log(-torch.log(u.clamp_min(torch.finfo(u.dtype).tiny)))
-    return torch.argmax(logits + gumbel, dim=-1)
+    return categorical.sample(logits, generator)
 
 
 def sample_from(loc: torch.Tensor, scale: torch.Tensor, idx: torch.Tensor,

@@ -79,6 +79,13 @@ HUMANOID_KD = {
     "left_shoulder": 40.0, "left_elbow": 30.0,
 }
 
+# left/right joint pairs, for mirroring a pose (reference agent.py)
+HUMANOID_JOINT_PAIRS = (
+    ("right_hip", "left_hip"), ("right_knee", "left_knee"),
+    ("right_ankle", "left_ankle"), ("right_shoulder", "left_shoulder"),
+    ("right_elbow", "left_elbow"),
+)
+
 HUMANOID_SCALE = 0.25
 
 

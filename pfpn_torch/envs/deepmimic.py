@@ -1,8 +1,11 @@
-"""DeepMimic humanoid imitation task, batched over environments.
+"""DeepMimic humanoid imitation tasks, batched over environments.
 
-Counterpart of ``pfpn_tpu/envs/deepmimic.py``: :func:`make` (Walk), the
-action tables and ``_action_to_targets`` of the three control modes (SPD,
-torque, position), ``reset`` with reference-state initialization and the
+Counterpart of ``pfpn_tpu/envs/deepmimic.py``: :func:`make` (Walk, Punch,
+Kick, and the multi-task batch of ``envs/multitask.py``), the constructor's
+options (``fps``, ``frame_skip``, ``random_init_pose``, ``overtime``,
+``control_range``, ``contact_params``, ``exact_ref_reward``), the action
+tables and ``_action_to_targets`` of the three control modes (SPD, torque,
+position), ``reset`` with reference-state initialization and the
 ground-penetration lift, ``step`` (through :meth:`Engine.control_step_full`,
 the CUDA megastep on the card, with the closed-form phase-wrap re-sync, or
 :meth:`Engine.control_step_links` when ``Engine.megastep_links`` is on:
@@ -11,8 +14,9 @@ epilogue; or,
 with the megastep off or another control mode, a loop of
 :meth:`Engine.substep` with the per-substep re-sync), the torque-log
 channel (``step_log``, ``torque_log``), the 197-dim observation, the
-five-term imitation reward on the dense reference tables, ``step_batch``
-and ``step_autoreset``.
+five-term imitation reward on the dense reference tables (or, with
+``exact_ref_reward``, on the reference pose's own FK), ``reward_terms``,
+``step_batch`` and ``step_autoreset``.
 
 Every function takes the whole batch: the JAX env is per environment and
 batched with ``vmap``, here the leading dim ``B`` is written out. Random
@@ -34,6 +38,7 @@ from ..mocap.loader import LINK_TO_JOINT, MotionData, load_motion
 from ..mocap.motion import apply_base_offset, sample_pose, sync_position_offset
 from ..sim import contact as contact_mod
 from ..sim.dynamics import LinkStates, const, fk, index_const, link_states
+from ..sim.contact import ContactParams
 from ..sim.engine import Engine, EngineConfig
 from ..sim.types import KinematicTree, REVOLUTE, SimState, tree_map
 from .assets import HUMANOID_KD, HUMANOID_KP, humanoid_tree
@@ -81,23 +86,30 @@ class StepResult(NamedTuple):
 class DeepMimicEnv:
     """Binds tree, motion and engine into batched reset/step functions."""
 
-    # the JAX env's constructor defaults (deepmimic.py:81-92), the values
-    # every preset uses
-    fps = 30.0
-    frame_skip = 20
-    overtime = 20.0          # time limit of an episode, seconds
-    control_range = 4.0
-
-    def __init__(self, motion: str = "walk", control_mode: str = "spd", device=None):
+    def __init__(self, motion: str = "walk", control_mode: str = "spd",
+                 fps: float = 30.0, frame_skip: int = 20,
+                 random_init_pose: bool = True, overtime: float = 20.0,
+                 control_range: float = 4.0,
+                 contact_params: Optional[ContactParams] = None,
+                 exact_ref_reward: bool = False, device=None):
+        """The JAX env's constructor (deepmimic.py:81-107); ``overtime`` is
+        an episode's time limit in seconds, ``contact_params`` replaces
+        ``EngineConfig.contact``."""
         self.device = resolve_device(device)
         self.tree: KinematicTree = humanoid_tree()
         self.motion_name = motion
         self.motion: MotionData = load_motion(self.tree, motion)
-        self.dt = 1.0 / (self.fps * self.frame_skip)
+        self.fps = fps
+        self.frame_skip = frame_skip
+        self.dt = 1.0 / (fps * frame_skip)
+        self.random_init_pose = random_init_pose
+        self.overtime = overtime
+        self.exact_ref_reward = exact_ref_reward
+        self.control_range = control_range
         self.control_mode = control_mode
 
-        cfg = EngineConfig(dt=self.dt, frame_skip=self.frame_skip,
-                           control_mode=control_mode)
+        cfg = EngineConfig(dt=self.dt, frame_skip=frame_skip, control_mode=control_mode,
+                           **({"contact": contact_params} if contact_params else {}))
         gains = build_gains(self.tree, HUMANOID_KP, HUMANOID_KD)
         self.engine = Engine(self.tree, cfg, gains)
 
@@ -183,7 +195,8 @@ class DeepMimicEnv:
                 self.group_links.append((link_name, w, True, int(tree.sph_index[b])))
 
         self.link_mass = tree.link_mass.astype(np.float32)
-        self._build_ref_tables()
+        if not self.exact_ref_reward:   # the exact path reads no table
+            self._build_ref_tables()
 
     def _build_ref_tables(self):
         """Dense phase-indexed reference tables (deepmimic.py:186): the
@@ -260,8 +273,12 @@ class DeepMimicEnv:
     # -- reset -----------------------------------------------------------
     def reset_batch(self, batch: int, generator: Optional[torch.Generator] = None):
         """Reference-state initialization of ``batch`` envs
-        (deepmimic.py:284), at phases drawn from ``generator``."""
-        ph = torch.rand(batch, generator=generator, device=self.device)
+        (deepmimic.py:284), at phases drawn from ``generator``, or at phase 0
+        without ``random_init_pose``."""
+        if self.random_init_pose:
+            ph = torch.rand(batch, generator=generator, device=self.device)
+        else:
+            ph = torch.zeros(batch, device=self.device)
         return self.reset_at(ph * self.motion.duration)
 
     def reset_at(self, init_time: torch.Tensor):
@@ -429,8 +446,10 @@ class DeepMimicEnv:
                           pos_state, vel_state], -1)
 
     # -- reward (deepmimic.py:504-594) -------------------------------------
-    def _reward_errors(self, state: EnvState, ls: LinkStates) -> dict:
+    def _reward_errors(self, state: EnvState, ls: Optional[LinkStates]) -> dict:
         sim = state.sim
+        if ls is None:
+            ls = link_states(self.tree, fk(self.tree, sim))
         ref = apply_base_offset(
             sample_pose(self.motion, state.elapsed_time), state.ref_pos_offset,
             torch.tensor([0.0, 0.0, 0.0, 1.0], device=sim.base_pos.device))
@@ -452,10 +471,22 @@ class DeepMimicEnv:
 
         # end effectors: heading-local, height kept absolute
         rot = self._heading_rot(sim.base_quat)
-        p = ls.frame_pos[:, index_const(self.end_effectors, sim.base_pos)]
+        ee = index_const(self.end_effectors, sim.base_pos)
+        p = ls.frame_pos[:, ee]
         rel = p - sim.base_pos[:, None]
         rel[..., UP] = p[..., UP]
-        ref_ee_local, ref_com_vel = self._ref_tables_at(state.elapsed_time)
+        m = const(self.link_mass, sim.base_pos)[:, None]
+        if self.exact_ref_reward:
+            # the reference pose's own FK each step (deepmimic.py:517-545)
+            ref_ls = link_states(self.tree, fk(self.tree, self._sim_from_pose(ref)))
+            rp = ref_ls.frame_pos[:, ee]
+            ref_rel = rp - ref.base_pos[:, None]
+            ref_rel[..., UP] = rp[..., UP]
+            ref_ee_local = torch.einsum("bij,bkj->bki", self._heading_rot(ref.base_quat),
+                                        ref_rel)
+            ref_com_vel = torch.sum(m * ref_ls.lin_vel, 1) / float(self.link_mass.sum())
+        else:
+            ref_ee_local, ref_com_vel = self._ref_tables_at(state.elapsed_time)
         d = torch.einsum("bij,bkj->bki", rot, rel) - ref_ee_local
         end_err = torch.sum(d * d, (1, 2)) / len(self.end_effectors)
 
@@ -466,17 +497,23 @@ class DeepMimicEnv:
         root_err = (root_pos_err + 0.1 * root_rot_err
                     + 0.01 * root_vel_err + 0.001 * root_ang_err)
 
-        m = const(self.link_mass, sim.base_pos)[:, None]
         com_vel = torch.sum(m * ls.lin_vel, 1) / float(self.link_mass.sum())
         com_err = 0.1 * torch.sum((com_vel - ref_com_vel) ** 2, -1)
         return {"pose": pose_err, "vel": vel_err, "end_eff": end_err,
                 "root": root_err, "com": com_err}
 
     def reward(self, state: EnvState, terminated: torch.Tensor,
-               ls: LinkStates) -> torch.Tensor:
+               ls: Optional[LinkStates] = None) -> torch.Tensor:
+        return sum(self.reward_terms(state, terminated, ls).values())
+
+    def reward_terms(self, state: EnvState, terminated: torch.Tensor,
+                     ls: Optional[LinkStates] = None) -> dict:
+        """The five weighted exp-of-error terms (deepmimic.py:596), 0 where
+        terminated; their sum is :meth:`reward`."""
         e = self._reward_errors(state, ls)
-        reward = sum(_WEIGHTS[k] * torch.exp(-_SCALES[k] * e[k]) for k in _WEIGHTS)
-        return torch.where(terminated, torch.zeros_like(reward), reward)
+        return {k: torch.where(terminated, torch.zeros_like(e[k]),
+                               _WEIGHTS[k] * torch.exp(-_SCALES[k] * e[k]))
+                for k in _WEIGHTS}
 
     # -- batched API ------------------------------------------------------
     def step_batch(self, states: EnvState, actions: torch.Tensor) -> StepResult:
@@ -498,14 +535,18 @@ class DeepMimicEnv:
         return (tree_map(pick, reset_states, res.state), pick(reset_obs, res.obs), res)
 
 
-def make(env_name: str, device=None, **kwargs) -> DeepMimicEnv:
-    """gym.make-style constructor (deepmimic.py:630); ``kwargs`` go to
-    :class:`DeepMimicEnv` (``control_mode``). Only Walk is ported."""
+def make(env_name: str, device=None, **kwargs):
+    """gym.make-style constructor (deepmimic.py:630): DeepMimic{Walk,Punch,
+    Kick}-v0, and DeepMimicMultiTask-v0, the batch of all three
+    (``envs/multitask.py``, with the one-hot task id in the observation by
+    default). ``kwargs`` go to :class:`DeepMimicEnv`."""
     name = env_name[:-3] if env_name.endswith("-v0") else env_name
     if not name.startswith("DeepMimic"):
         raise ValueError(f"unknown env {env_name}")
     motion = name[len("DeepMimic"):].lower()
-    if motion != "walk":
-        raise NotImplementedError(f"{env_name}: only DeepMimicWalk-v0 is ported")
+    if motion == "multitask":
+        from .multitask import MultiTaskEnv
+        kwargs.setdefault("task_obs", True)
+        return MultiTaskEnv(("walk", "punch", "kick"), device=device, **kwargs)
     return DeepMimicEnv(motion=motion, device=device, **kwargs)
 

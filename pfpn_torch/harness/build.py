@@ -1,34 +1,45 @@
 """Construct env, network and algorithm from a RunConfig.
 
-Counterpart of ``pfpn_tpu/harness/build.py`` for what the port has: PPO
-with the particle head on a feed-forward network without value
-normalization (the ``deepmimic_dppo_pfpn`` preset). Other algorithms,
-heads, the LSTM trunk and value normalization raise.
+Counterpart of ``pfpn_tpu/harness/build.py`` for what the port has: PPO on
+a feed-forward network without value normalization, with any of the three
+heads (the DPPO presets); the discrete preset's env is wrapped in
+:class:`~pfpn_torch.envs.wrappers.DiscreteActionWrapper`. Other
+algorithms, the LSTM trunk and value normalization raise.
 """
 
 from __future__ import annotations
 
 from .. import resolve_device
 from ..algos.ppo import PPO, PPOConfig
-from ..envs.deepmimic import DeepMimicEnv, make
+from ..envs.deepmimic import make
+from ..envs.wrappers import DiscreteActionWrapper
 from ..networks.actor_critic import ACConfig, ActorCritic
-from ..networks.heads import ParticleHead
+from ..networks.heads import CategoricalHead, GaussianHead, HeadConfig, ParticleHead
 from .config import RunConfig
 
 
-def build_env(cfg: RunConfig, device=None) -> DeepMimicEnv:
-    return make(cfg.env, device=resolve_device(device))
+def build_env(cfg: RunConfig, device=None):
+    env = make(cfg.env, device=resolve_device(device))
+    if cfg.head.kind == "discrete":
+        env = DiscreteActionWrapper(env, cfg.head.particles)
+    return env
 
 
-def build_head(cfg: RunConfig, env) -> ParticleHead:
-    if cfg.head.kind != "particle":
-        raise NotImplementedError(f"head {cfg.head.kind!r} is not ported yet")
+def build_head(cfg: RunConfig, env) -> HeadConfig:
+    """The preset's head, unsquashed as PPO uses it (build.py:25-52)."""
     h = cfg.head
-    return ParticleHead(
-        action_dim=env.action_size, particles=h.particles, init_sigma=h.init_sigma,
-        fixed_sigma=h.fixed_sigma, resample=h.resample,
-        resample_interval=h.resample_interval,
-        resample_threshold=h.resample_threshold)
+    if h.kind == "particle":
+        return ParticleHead(
+            action_dim=env.action_size, particles=h.particles, init_sigma=h.init_sigma,
+            fixed_sigma=h.fixed_sigma, resample=h.resample,
+            resample_interval=h.resample_interval,
+            resample_threshold=h.resample_threshold)
+    if h.kind == "gaussian":
+        return GaussianHead(action_dim=env.action_size, init_sigma=h.init_sigma,
+                            fixed_sigma=h.fixed_sigma)
+    if h.kind == "discrete":
+        return CategoricalHead(action_dim=env.action_size, bins=h.particles)
+    raise ValueError(h.kind)
 
 
 def build_net(cfg: RunConfig, env) -> ActorCritic:

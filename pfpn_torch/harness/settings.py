@@ -1,6 +1,9 @@
 """Named run presets. Counterpart of ``pfpn_tpu/harness/settings.py``;
-this slice ports the headline preset, ``deepmimic_dppo_pfpn``
-(``settings.py:62-71``)."""
+the port has the DPPO presets (``settings.py:62-87``): the particle head
+(``deepmimic_dppo_pfpn``, the headline), the Gaussian head
+(``deepmimic_dppo_gauss``) and the discretized action space
+(``deepmimic_dppo_dis``). The other presets raise, naming the ROADMAP item
+that ports their algorithm."""
 
 from __future__ import annotations
 
@@ -12,19 +15,43 @@ from .config import (
     dppo_pfpn_resample_interval,
 )
 
+# the JAX package's other presets, by the algorithm that waits for a port
+_NOT_PORTED = {
+    "a3c": "A3C (ROADMAP bring-up order, item 2: algos/a2c.py)",
+    "impala": "IMPALA (ROADMAP bring-up order, item 2: algos/vtrace.py)",
+    "sac": "SAC with the squashed heads (ROADMAP bring-up order, item 1: algos/sac.py)",
+    "ddpg": "DDPG with the squashed heads (ROADMAP bring-up order, item 1: algos/sac.py)",
+}
+
+
+def _dppo_worker(**kw) -> WorkerSettings:
+    # deepmimic_dppo_base.py:6-11; lr_actor stays 5e-6 (deepmimic_base.py)
+    # unless a preset sets it
+    return dataclasses.replace(WorkerSettings(), norm_clip=1.0, opt_epochs=1,
+                               batch_size=32, unroll_length=512, **kw)
+
 
 def build(setting: str, particles: Optional[int] = None,
           env: str = "DeepMimicWalk-v0", seed: int = 1,
           max_samples: int = 15_000_000, soft: bool = False,
           env_multiplier: int = 1) -> RunConfig:
     name = setting.split(".")[-1]
-    if name != "deepmimic_dppo_pfpn":
-        raise NotImplementedError(f"setting {setting!r} is not ported yet")
-    worker = dataclasses.replace(
-        WorkerSettings(), norm_clip=1.0, opt_epochs=1, batch_size=32,
-        unroll_length=512, lr_actor=1e-4)
-    head = HeadSettings(kind="particle", particles=particles or 35, resample=-1,
-                        resample_interval=dppo_pfpn_resample_interval(worker, soft))
+    if name == "deepmimic_dppo_pfpn":
+        worker = _dppo_worker(lr_actor=1e-4)
+        head = HeadSettings(kind="particle", particles=particles or 35, resample=-1,
+                            resample_interval=dppo_pfpn_resample_interval(worker, soft))
+    elif name == "deepmimic_dppo_gauss":
+        worker = _dppo_worker()
+        head = HeadSettings(kind="gaussian", particles=None, init_sigma=0.05)
+    elif name == "deepmimic_dppo_dis":
+        worker = _dppo_worker(lr_actor=1e-4)
+        head = HeadSettings(kind="discrete", particles=particles or 35)
+    else:
+        algo = name.split("_")[1] if name.count("_") >= 2 else ""
+        if name.startswith("deepmimic_") and algo in _NOT_PORTED:
+            raise NotImplementedError(
+                f"setting {setting!r} is not ported yet: it waits for {_NOT_PORTED[algo]}")
+        raise KeyError(f"unknown setting: {setting}")
     net = dataclasses.replace(NetworkSettings(), normalize_advantage=True)
     return RunConfig(name=name, algo="ppo", head=head, network=net,
                      worker=worker, workers=8, env=env, seed=seed,

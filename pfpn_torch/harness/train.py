@@ -75,11 +75,11 @@ def train(cfg: RunConfig, root: str = ".", eval_every_rounds: int = 50,
                   f"frames {frames.mean():.0f}", flush=True)
             head = algo.net.head
             with torch.no_grad():
-                logger.log_histograms(step, {
-                    "particle/loc": head.particles.cpu().numpy(),
-                    "particle/std": torch.exp(head.log_std_tensor()).cpu().numpy(),
-                    "action": algo.net.act_deterministic(state.obs).cpu().numpy(),
-                }, prefix="train/")
+                hists = {"action": algo.net.act_deterministic(state.obs).cpu().numpy()}
+                if algo.net.is_pfpn:
+                    hists["particle/loc"] = head.particles.cpu().numpy()
+                    hists["particle/std"] = torch.exp(head.log_std_tensor()).cpu().numpy()
+                logger.log_histograms(step, hists, prefix="train/")
 
         if step - last_ckpt_step >= cfg.save_checkpoint_interval:
             ckpt.save(step, state)

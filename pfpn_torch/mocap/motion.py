@@ -1,14 +1,16 @@
 """Phase-indexed reference-motion queries, batched over environments.
 
 Counterpart of ``pfpn_tpu/mocap/motion.py``: a gather + lerp/slerp over the
-dense frame tables at a batch of query times, the cycle-wrap base offset and
-the horizontal re-sync of the reference root to the simulated one.
+dense frame tables at a batch of query times, the cycle-wrap base offset,
+the horizontal re-sync of the reference root to the simulated one, and the
+left/right mirror of a pose.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from ..math import quaternion as quat
@@ -81,3 +83,46 @@ def sync_position_offset(motion: MotionData, time: torch.Tensor,
     offset = target_base_pos - sample_pose(motion, time).base_pos
     offset[:, up_dir] = 0.0
     return offset
+
+
+def mirror_pose(pose: MotionPose, tree, joint_pairs, up_dir: int = 1) -> MotionPose:
+    """Left/right mirror of a batch of reference poses (motion.py:94, y-up):
+    the lateral axis z of base position and velocity negates, the x and y
+    components of quaternions and angular velocities negate, revolute joints
+    with an x or y axis component negate (the knees and elbows, about z,
+    keep their sign), and the left and right joints of ``joint_pairs``
+    swap."""
+    assert up_dir == 1, "mirror implemented for the y-up humanoid"
+    neg_w = torch.tensor([1.0, 1.0, -1.0], device=pose.base_pos.device)
+    neg_quat = torch.tensor([-1.0, -1.0, 1.0, 1.0], device=pose.base_pos.device)
+    neg_ang = torch.tensor([-1.0, -1.0, 1.0], device=pose.base_pos.device)
+    rev_sign = np.ones(tree.n_rev, dtype=np.float32)
+    perm_sph, perm_rev = np.arange(tree.n_sph), np.arange(tree.n_rev)
+    motor_index = {nm: i for i, nm in enumerate(tree.motor_names)}
+    for b in tree.motor_bodies:
+        if tree.joint_type[b] == 2:  # REVOLUTE
+            ax = tree.joint_axis[b]
+            if abs(ax[0]) > 1e-9 or abs(ax[1]) > 1e-9:
+                rev_sign[int(tree.rev_index[b])] = -1.0
+    for right, left in joint_pairs:
+        br = tree.motor_bodies[motor_index[right]]
+        bl = tree.motor_bodies[motor_index[left]]
+        if tree.joint_type[br] == 1:  # SPHERICAL
+            r, l = int(tree.sph_index[br]), int(tree.sph_index[bl])
+            perm_sph[r], perm_sph[l] = perm_sph[l], perm_sph[r]
+        else:
+            r, l = int(tree.rev_index[br]), int(tree.rev_index[bl])
+            perm_rev[r], perm_rev[l] = perm_rev[l], perm_rev[r]
+    sign = const(rev_sign, pose.q_rev)
+    ps = torch.as_tensor(perm_sph, device=pose.base_pos.device)
+    pr = torch.as_tensor(perm_rev, device=pose.base_pos.device)
+    return MotionPose(
+        base_pos=pose.base_pos * neg_w,
+        base_quat=pose.base_quat * neg_quat,
+        base_lin=pose.base_lin * neg_w,
+        base_ang=pose.base_ang * neg_ang,
+        q_sph=(pose.q_sph * neg_quat)[:, ps],
+        w_sph=(pose.w_sph * neg_ang)[:, ps],
+        q_rev=(pose.q_rev * sign)[:, pr],
+        w_rev=(pose.w_rev * sign)[:, pr],
+    )

@@ -2,15 +2,16 @@
 
 Counterpart of ``pfpn_tpu/networks/actor_critic.py``: clipped state
 normalizer -> optional shared trunk -> actor MLP (relu6 after every layer)
-+ particle head; critic MLP -> value. The module holds the trainable
-parameters and the normalizer's buffers; :class:`ACConfig` carries the loss
-settings PPO reads. Ported: initialization (:meth:`ActorCritic.init_parameters`,
++ policy head (Gaussian, categorical or particle); critic MLP -> value.
+The module holds the trainable parameters and the normalizer's buffers;
+:class:`ACConfig` carries the loss settings PPO reads. Ported:
+initialization (:meth:`ActorCritic.init_parameters`,
 ``actor_critic.py:81``), :meth:`~ActorCritic.init_stats`, the policy API
 (``act``, ``act_deterministic``, ``log_prob``, ``entropy``, ``value``,
-``:149-178``) and :func:`load_jax_params`, which carries the JAX package's
-weights across. Value normalization (``value_norm.py``,
-``_clip_with_gradient``) is off in every shipped preset and comes later;
-``harness/build.py`` refuses it.
+``:149-178``), and :func:`load_jax_params` and :func:`export_jax_params`,
+which carry weights between the packages. Value normalization
+(``value_norm.py``, ``_clip_with_gradient``) is off in every shipped preset
+and comes later; ``harness/build.py`` refuses it.
 """
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from .heads import ParticleHead, ParticleHeadModule, init_activation_stats
+from .heads import HeadConfig, ParticleHead, head_module, init_activation_stats
 from .mlp import MLP
 from .normalizer import Normalizer
 
@@ -31,7 +32,7 @@ from .normalizer import Normalizer
 @dataclasses.dataclass(frozen=True)
 class ACConfig:
     obs_dim: int
-    head: ParticleHead
+    head: HeadConfig
     common_shape: Tuple[int, ...] = ()
     actor_shape: Tuple[int, ...] = (1024, 512)
     critic_shape: Tuple[int, ...] = (1024, 512)
@@ -62,19 +63,26 @@ class ActorCritic(nn.Module):
         if cfg.actor_shape:
             self.actor_trunk = MLP([feat, *cfg.actor_shape], last_activation=F.relu6)
             actor_feat = cfg.actor_shape[-1]
-        self.head = ParticleHeadModule(cfg.head, actor_feat)
+        self.head = head_module(cfg.head, actor_feat)
         self.critic = MLP([feat, *cfg.critic_shape, 1])
 
     def init_parameters(self, generator: Optional[torch.Generator]) -> None:
         """The reference's initialization (actor_critic.py:81): every trunk
-        and the critic truncated-normal, the particle grid in the head. The
-        normalizer keeps its state."""
+        and the critic truncated-normal, the head as its kind is initialized
+        (for the particle head, its grid). The normalizer keeps its state."""
         for part in (self.common, self.actor_trunk, self.head, self.critic):
             if part is not None:
                 part.init_parameters(generator)
 
+    @property
+    def is_pfpn(self) -> bool:
+        return isinstance(self.cfg.head, ParticleHead)
+
     def init_stats(self) -> Dict:
-        """The head's resampling accumulators (actor_critic.py:110)."""
+        """The particle head's resampling accumulators, none for the other
+        heads (actor_critic.py:101-104)."""
+        if not self.is_pfpn:
+            return {}
         return init_activation_stats(self.cfg.head, self.head.particles.device)
 
     def _features(self, obs: torch.Tensor) -> torch.Tensor:
@@ -117,7 +125,10 @@ def load_jax_params(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     """The JAX package's flat ``params/...`` and ``norm/...`` arrays (the
     layout of ``tools/export_policy.py:25-55``, ``:130-139``) as an
     :class:`ActorCritic` state dict (fp32, CPU): ``params/<mlp>/#<i>/w``
-    (in, out) becomes ``<mlp>.layers.<i>.weight`` (out, in)."""
+    (in, out) becomes ``<mlp>.layers.<i>.weight`` (out, in); the head's
+    linear layers (``fc_policy``, ``fc_mu``, ``fc_log_sigma``) likewise,
+    its other arrays (``particles``, ``particles_log_std``, ``log_sigma``)
+    keep their names and shapes."""
     state: Dict[str, torch.Tensor] = {}
     for key, val in flat.items():
         t = torch.tensor(np.asarray(val, dtype=np.float32))
@@ -129,8 +140,8 @@ def load_jax_params(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
             raise KeyError(f"unexpected key {key!r}")
         parts = parts[1:]
         if parts[0] == "head":
-            if parts[1] == "fc_policy":
-                state[f"head.fc_policy.{_linear_name(parts[2])}"] = _linear(parts[2], t)
+            if len(parts) == 3:     # a linear layer of the head
+                state[f"head.{parts[1]}.{_linear_name(parts[2])}"] = _linear(parts[2], t)
             else:
                 state[f"head.{parts[1]}"] = t
         else:
@@ -138,6 +149,35 @@ def load_jax_params(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
             idx = int(layer.lstrip("#"))
             state[f"{mlp}.layers.{idx}.{_linear_name(leaf)}"] = _linear(leaf, t)
     return state
+
+
+def export_jax_params(net: ActorCritic) -> Dict[str, np.ndarray]:
+    """The reverse of :func:`load_jax_params`: ``net``'s parameters and
+    normalizer as the JAX package's flat ``params/...`` and ``norm/...``
+    arrays (fp32), weights back in (in, out)."""
+    flat: Dict[str, np.ndarray] = {}
+    for key, t in net.state_dict().items():
+        a = t.detach().cpu().numpy()
+        parts = key.split(".")
+        if parts[0] == "norm":
+            flat[f"norm/{parts[1]}"] = a
+        elif parts[0] == "head":
+            if len(parts) == 3:     # a linear layer of the head
+                flat[f"params/head/{parts[1]}/{_leaf_name(parts[2])}"] = _unlinear(parts[2], a)
+            else:
+                flat[f"params/head/{parts[1]}"] = a
+        else:
+            mlp, _, idx, leaf = parts
+            flat[f"params/{mlp}/#{idx}/{_leaf_name(leaf)}"] = _unlinear(leaf, a)
+    return flat
+
+
+def _leaf_name(name: str) -> str:
+    return {"weight": "w", "bias": "b"}[name]
+
+
+def _unlinear(name: str, a: np.ndarray) -> np.ndarray:
+    return np.ascontiguousarray(a.T) if name == "weight" else a
 
 
 def _linear_name(leaf: str) -> str:

@@ -1,29 +1,56 @@
-"""The particle-filtering policy head.
+"""Policy heads: Gaussian, factored-categorical and particle-filtering.
 
-Counterpart of the particle branches of ``pfpn_tpu/networks/heads.py``:
-the :class:`ParticleHead` config (``heads.py:56``); its parameters, a logit
-layer reshaped to [..., D, N] over free particle means and log-stds [D, N],
-with the non-squashed initialization of ``init_head`` (``heads.py:95-141``:
-endpoints ``linspace(-1, 1, N)``, std 2 / (N - 1) or ``init_sigma``);
-``_particle_loc_scale``, ``head_dist``, ``sample_with_log_prob``,
-``log_prob_of``, ``entropy_of`` and ``deterministic_action``; and the
-resampling statistics (:func:`init_activation_stats`,
-:func:`update_activation_stats`, ``heads.py:144``, ``:305``). The Gaussian
-and categorical heads and the tanh-squashed (SAC) particle head come with
-later slices.
+Counterpart of ``pfpn_tpu/networks/heads.py`` for the DPPO (unsquashed)
+heads. Each head is a frozen config dataclass and an ``nn.Module`` holding
+its parameters, with the JAX package's ``init_head``, ``head_dist``,
+``sample_with_log_prob``, ``log_prob_of``, ``entropy_of`` and
+``deterministic_action`` as methods:
+
+* :class:`GaussianHead` (``heads.py:36``): ``fc_mu`` and a state-dependent
+  log-sigma layer (zero weights and a bias of log ``init_sigma`` when that
+  is set), or a trainable ``log_sigma`` row (``variabilize_sigma``), or a
+  fixed sigma; ``max_sigma`` bounds sigma through a tanh;
+* :class:`CategoricalHead` (``heads.py:48``): one logit layer reshaped to
+  [..., D, bins];
+* :class:`ParticleHead` (``heads.py:56``): a logit layer reshaped to
+  [..., D, N] over free particle means and log-stds [D, N], with the
+  non-squashed grid (``heads.py:95-141``: endpoints ``linspace(-1, 1, N)``,
+  std 2 / (N - 1) or ``init_sigma``), and the resampling statistics
+  (:func:`init_activation_stats`, :func:`update_activation_stats`,
+  ``heads.py:144``, ``:305``).
+
+The tanh-squashed heads (SAC, DDPG) come with their algorithms.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional
+from typing import Dict, Optional, Union
 
 import numpy as np
 import torch
 from torch import nn
 
+from ..distributions import categorical as cat
+from ..distributions import gaussian as gauss
 from ..distributions import particle as pfp
 from .mlp import init_linear_
+
+
+@dataclasses.dataclass(frozen=True)
+class GaussianHead:
+    action_dim: int
+    init_sigma: Optional[float] = None
+    fixed_sigma: bool = False
+    variabilize_sigma: bool = False
+    max_sigma: Optional[float] = None
+    sigma_eps: float = 2e-9
+
+
+@dataclasses.dataclass(frozen=True)
+class CategoricalHead:
+    action_dim: int   # number of action dimensions
+    bins: int         # values per dimension (DiscreteActionWrapper's n)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,6 +138,109 @@ class ParticleHeadModule(nn.Module):
         """heads.py:289: the particle mode."""
         logits, loc, _ = self.dist(feat)
         return pfp.mode(logits, loc)
+
+
+class GaussianHeadModule(nn.Module):
+    """Parameters of a :class:`GaussianHead` on features of width ``feat_dim``."""
+
+    def __init__(self, cfg: GaussianHead, feat_dim: int):
+        super().__init__()
+        self.cfg = cfg
+        self.fc_mu = nn.Linear(feat_dim, cfg.action_dim)
+        if not cfg.fixed_sigma:
+            if cfg.variabilize_sigma:
+                self.log_sigma = nn.Parameter(torch.zeros(1, cfg.action_dim))
+            else:
+                self.fc_log_sigma = nn.Linear(feat_dim, cfg.action_dim)
+
+    @torch.no_grad()
+    def init_parameters(self, generator: Optional[torch.Generator]) -> None:
+        """init_head's Gaussian branch (heads.py:74-94)."""
+        cfg = self.cfg
+        init_linear_(self.fc_mu, generator)
+        if cfg.fixed_sigma:
+            return
+        if cfg.variabilize_sigma:
+            self.log_sigma.fill_(float(np.log(cfg.init_sigma)) if cfg.init_sigma else 0.0)
+        elif cfg.init_sigma:
+            # sigma starts at init_sigma for every state (heads.py:82-88)
+            self.fc_log_sigma.weight.zero_()
+            self.fc_log_sigma.bias.fill_(float(np.log(cfg.init_sigma)))
+        else:
+            init_linear_(self.fc_log_sigma, generator)
+
+    def dist(self, feat: torch.Tensor):
+        """(mu, sigma) [..., D] (heads.py:170-185)."""
+        cfg = self.cfg
+        mu = self.fc_mu(feat)
+        if cfg.fixed_sigma:
+            return mu, torch.full_like(mu, cfg.init_sigma)
+        if cfg.variabilize_sigma:
+            return mu, torch.exp(self.log_sigma.expand_as(mu)) + cfg.sigma_eps
+        log_sigma = self.fc_log_sigma(feat)
+        if cfg.max_sigma:
+            offset = 0.5 * (np.log(cfg.max_sigma) + np.log(cfg.sigma_eps))
+            scale = 0.5 * (np.log(cfg.max_sigma) - np.log(cfg.sigma_eps))
+            return mu, torch.exp(torch.tanh(log_sigma) * float(scale) + float(offset))
+        return mu, torch.exp(log_sigma) + cfg.sigma_eps
+
+    def sample_with_log_prob(self, feat: torch.Tensor,
+                             generator: Optional[torch.Generator]):
+        mu, sigma = self.dist(feat)
+        x = gauss.sample(mu, sigma, generator)
+        return x, gauss.log_prob(mu, sigma, x), {}
+
+    def log_prob_of(self, feat: torch.Tensor, action: torch.Tensor) -> torch.Tensor:
+        mu, sigma = self.dist(feat)
+        return gauss.log_prob(mu, sigma, action)
+
+    def entropy_of(self, feat: torch.Tensor) -> torch.Tensor:
+        return gauss.entropy(self.dist(feat)[1])
+
+    def deterministic_action(self, feat: torch.Tensor) -> torch.Tensor:
+        return self.dist(feat)[0]
+
+
+class CategoricalHeadModule(nn.Module):
+    """Parameters of a :class:`CategoricalHead`; actions are integer bins."""
+
+    def __init__(self, cfg: CategoricalHead, feat_dim: int):
+        super().__init__()
+        self.cfg = cfg
+        self.fc_policy = nn.Linear(feat_dim, cfg.action_dim * cfg.bins)
+
+    def init_parameters(self, generator: Optional[torch.Generator]) -> None:
+        init_linear_(self.fc_policy, generator)
+
+    def dist(self, feat: torch.Tensor):
+        """(logits [..., D, bins],)"""
+        logits = self.fc_policy(feat)
+        return (logits.reshape(feat.shape[:-1] + (self.cfg.action_dim, self.cfg.bins)),)
+
+    def sample_with_log_prob(self, feat: torch.Tensor,
+                             generator: Optional[torch.Generator]):
+        (logits,) = self.dist(feat)
+        a = cat.sample(logits, generator)
+        return a, cat.log_prob(logits, a), {}
+
+    def log_prob_of(self, feat: torch.Tensor, action: torch.Tensor) -> torch.Tensor:
+        return cat.log_prob(self.dist(feat)[0], action)
+
+    def entropy_of(self, feat: torch.Tensor) -> torch.Tensor:
+        return torch.sum(cat.entropy(self.dist(feat)[0]), dim=-1)
+
+    def deterministic_action(self, feat: torch.Tensor) -> torch.Tensor:
+        return cat.mode(self.dist(feat)[0])
+
+
+HeadConfig = Union[GaussianHead, CategoricalHead, ParticleHead]
+_MODULES = {GaussianHead: GaussianHeadModule, CategoricalHead: CategoricalHeadModule,
+            ParticleHead: ParticleHeadModule}
+
+
+def head_module(cfg: HeadConfig, feat_dim: int) -> nn.Module:
+    """The module of a head config."""
+    return _MODULES[type(cfg)](cfg, feat_dim)
 
 
 def init_activation_stats(cfg: ParticleHead, device=None) -> Dict:
