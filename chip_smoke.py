@@ -12,8 +12,9 @@ Phases, in order; any failure exits non-zero:
    two-warp kernel;
 3. holds the megastep kernel against its plain PyTorch version on the card,
    from perturbed reset states: one substep (B=256), one control step
-   (B=16), and the share of envs past the bounds at B=1024; then one env
-   step through the kernel against the plain path on the CPU;
+   (B=16, and B=1, the off-policy presets' one env, in both variants), and
+   the share of envs past the bounds at B=1024; then one env step through
+   the kernel against the plain path on the CPU;
 4. the acting path: plays the shipped DPPO + PFPN-35 Walk policy for 10
    deterministic episodes through ``pfpn_torch.tools.export_policy.play``
    and checks that every env step launched the megastep's default variant
@@ -43,9 +44,9 @@ Phases, in order; any failure exits non-zero:
    episode's return at step 300 within 1% of phase 4's megastep play at
    the same step (same start states), and the mean return over the 600
    steps within 5% of the JAX package's 578.53. It runs in a second
-   process (``chip_smoke.py --megastep-off-play``) beside phases 14-16:
-   all four are paced by the host launching small kernels, the card idle
-   most of the time, while the timed phases run alone;
+   process (``chip_smoke.py --megastep-off-play``) beside phases 14-16
+   and 18-21: all are paced by the host launching small kernels, the card
+   idle most of the time, while the kernel timings run alone;
 11. the ``spd_inverse`` paths at B=8192: ``step_log`` (20
    ``spd_inverse_pair`` launches per env step) and torque-control
    ``step_autoreset`` under random normalized torques (20 ``spd_inverse``
@@ -86,10 +87,32 @@ Phases, in order; any failure exits non-zero:
    and played back against the checkpoint's play at the npz's fp16
    parameters (1e-4 relative);
 17. MultiTask ``step_autoreset`` at B=8192, random actions in ±0.2, by
-   CUDA events, beside Walk's of phase 5.
+   CUDA events, beside Walk's of phase 5;
+18. plays the shipped SAC + PFPN-35 Walk npz for 10 deterministic
+   episodes of 600 steps from the JAX package's own start phases
+   (``SAC_PLAY``) through ``export_policy.play``: the mean return within
+   5% of JAX's CPU return, 600 default-variant launches and nothing else;
+19. SAC training: ``cli.main([... "--setting", "deepmimic_sac_pfpn",
+   "--env_multiplier", "16", "--max_rounds", "1", "--train"])`` with
+   ``PFPN_MEGASTEP_LINKS=1`` (the shipped npz's run: 16 envs, 16 gradient
+   steps per env step): 64 ``emit_links`` launches at B=16 and no other
+   kernel, ``total_samples`` 1024, ``global_step`` 784, finite losses and
+   alpha, online and target ``q1`` both moved and apart, the 1,000,000 x
+   432 ring on the card, a checkpoint without the ring that restores the
+   parameters, targets and Adam state; the round split into env steps and
+   gradient steps (CUDA events); a ``torch.profiler`` window over 16
+   gradient steps;
+20. one round each of ``deepmimic_sac_gauss``, ``deepmimic_ddpg_pfpn`` and
+   ``deepmimic_ddpg_gauss`` at ``--env_multiplier 8``: ``global_step`` 264,
+   finite losses, a checkpoint, 64 ``emit_links`` launches and no other;
+21. ``python -m pfpn_torch`` without ``--train`` on phase 19's checkpoint:
+   its returns against ``SAC.evaluate``'s from the same start states (1e-4
+   relative), 600 default-variant launches; then the checkpoint exported
+   through ``export_policy`` and played back at the npz's fp16 parameters
+   (1e-4 relative).
 
-Phases run in the order 1-9, 11-13, then 10 (second process) beside 14-16,
-then 17.
+Phases run in the order 1-9, 11-13, then 10 (second process) beside 14,
+18, 15, 19, 20, 16 and 21, then 17.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``.
@@ -162,6 +185,23 @@ TASK_PLAYS = {
         "jax_return_mean_key1": 541.1686,
     },
 }
+# phase 18: the JAX package's deterministic play of the shipped SAC + PFPN-35
+# Walk npz from PRNGKey(0) split 10 ways, JAX on the CPU, printed by
+#   JAX_PLATFORMS=cpu python tests/test_torch_eval.py --setting deepmimic_sac_pfpn --keys 0 1
+SAC_PLAY = {
+    "npz": ("results/policies/DeepMimicWalk-v0_deepmimic_sac_pfpn_particle35_34114"
+            "_step11138592.npz"),
+    "init_time": [1.0668885707855225, 0.009238469414412975, 1.1430569887161255,
+                  0.33817312121391296, 0.1946210414171219, 0.9348390698432922,
+                  1.1116917133331299, 0.6017012000083923, 0.32828885316848755,
+                  0.6697083115577698],
+    "jax_return": [580.3709106445312, 581.2010498046875, 581.3922729492188, 581.27392578125,
+                   581.1026000976562, 580.7476806640625, 581.0772705078125, 580.3902587890625,
+                   580.77734375, 580.9088745117188],
+    "jax_return_mean_key1": 581.2579,
+}
+SAC_RING = (1_000_000, 432)   # the preset's ring: obs 197, next_obs 197, action 36, 2 scalars
+SAC_PROFILE_STEPS = 16        # gradient steps in phase 19's profiler window
 FP32_PEAK = 67e12      # H100 SXM fp32 outside the tensor cores, FLOP/s
 HBM_RATE = 3.35e12     # H100 SXM device memory, bytes/s
 BIG_B = 8192
@@ -543,6 +583,22 @@ def main():
     check(bool(want[1].any()), "control step: no contact engaged")
     for k, tol in tol20.items():
         check(e20[k] <= tol, f"control step: {k} error {e20[k]:.3g} > {tol:g}")
+
+    # one control step at B=1, the off-policy presets' one env (a single
+    # block): both variants against their plain version at the same bounds
+    st, ts, tr = perturbed(1, 22)
+    for links in (False, True):
+        variant = "emit_links" if links else "default"
+        got = mega.kernel(st, ts, tr, links=links)
+        want = mega.plain(st, ts, tr, links=links)
+        torch.cuda.synchronize()
+        e_b1 = summary(errors(got, want))
+        max_err[f"control_step_B1_{variant}"] = e_b1
+        print(f"control step, B=1, {variant}, max abs err ({int(want[1].sum())} contacts "
+              f"active): {json.dumps(e_b1)}")
+        for k, tol in tol20.items():
+            check(e_b1[k] <= tol, f"control step B=1 {variant}: {k} error {e_b1[k]:.3g} > "
+                                  f"{tol:g}")
 
     # one control step, B=1024: chaos over 20 contact-rich substeps may flip
     # a knife-edge contact (tests/test_megastep.py:183-192); at most 2% of
@@ -1194,8 +1250,8 @@ def main():
     print(f"after training: clocks.sm, power.draw, temperature: {clocks}")
 
     # ---- 10. the megastep-off path: play, in a second process ---------------------------
-    # launch-bound on the host like phases 14-16, so the two run side by side
-    # (the card is idle most of the time in both); timed phases stay alone
+    # launch-bound on the host like phases 14-16 and 18-21, so they run side
+    # by side (the card is idle most of the time in all); kernel timings stay alone
     off_path = os.path.join(work.name, "play_megastep_off.json")
     off_log = open(os.path.join(work.name, "play_megastep_off.log"), "w+")
     off_proc = subprocess.Popen(
@@ -1256,6 +1312,40 @@ def main():
         del algo_p
     check(not play_faults, "; ".join(play_faults))
 
+    # ---- 18. play the shipped SAC + PFPN-35 Walk policy -------------------------------
+    algo_s = build_algo(build("deepmimic_sac_pfpn", particles=35), dev)
+    load_policy(algo_s, SAC_PLAY["npz"])
+    zero_counts(algo_s.env)
+    linalg.launches = sl.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.time()
+    out_s = play(SAC_PLAY["npz"], episodes=len(SAC_PLAY["init_time"]), max_steps=600,
+                 algo=algo_s, init_time=torch.tensor(SAC_PLAY["init_time"], device=dev))
+    torch.cuda.synchronize()
+    sac_play_s = time.time() - t0
+    sac_play_counts = path_counts(algo_s.env)
+    rew_s = out_s["reward"].cpu().numpy()
+    frames_s = out_s["frames"].cpu().numpy()
+    jax_mean = float(np.mean(SAC_PLAY["jax_return"]))
+    sac_rel = abs(float(rew_s.mean()) - jax_mean) / jax_mean
+    sac_play = {"return_mean": float(rew_s.mean()), "jax_return_mean": jax_mean, "rel": sac_rel,
+                "jax_return_mean_key1": SAC_PLAY["jax_return_mean_key1"],
+                "returns": rew_s.tolist(), "frames": frames_s.tolist(), "wall_s": sac_play_s,
+                "launches": sac_play_counts}
+    print(f"play of the shipped SAC + PFPN-35 Walk npz: 10 deterministic episodes from JAX's "
+          f"PRNGKey(0) start times in {sac_play_s:.1f} s [{card}]: return mean "
+          f"{rew_s.mean():.2f} against JAX's {jax_mean:.2f} on the CPU ({sac_rel:.2%}; JAX from "
+          f"PRNGKey(1): {SAC_PLAY['jax_return_mean_key1']:.2f}); per episode "
+          f"{[round(float(x), 2) for x in rew_s]}, frames {frames_s.tolist()}; launches "
+          f"{sac_play_counts}")
+    check(bool(np.isfinite(rew_s).all()), "SAC play: return not finite")
+    check(int(frames_s.max()) == 600 and sac_play_counts == {
+        "megastep": 600, "megastep_emit_links": 0, "spd_inverse": 0, "substep_lin": 0},
+          f"SAC play: launches {sac_play_counts} for {int(frames_s.max())} env steps")
+    check(sac_rel <= 0.05, f"SAC play: return {rew_s.mean():.2f}, {sac_rel:.2%} from JAX's "
+                           f"{jax_mean:.2f}, more than 5%")
+    del algo_s
+
     # ---- 15. one training round of each new preset through the CLI ------------------
     new_rounds = {}
     for setting, env_name in (("deepmimic_dppo_gauss", "DeepMimicWalk-v0"),
@@ -1303,6 +1393,182 @@ def main():
               f"training {setting}: losses not finite or not logged: {losses_n}")
         check(ckpt_n == [16], f"training {setting}: checkpoints {ckpt_n}")
         del algo_n, state_n
+
+    # ---- 19. SAC training at the shipped run's configuration ---------------------------
+    from pfpn_torch.algos.sac import SAC
+
+    sac_cfg = build("deepmimic_sac_pfpn", particles=35, seed=seed, env_multiplier=16)
+    # the run's initial q1 (online and target alike): init_state's first draws
+    net0 = build_net(sac_cfg, env).to(dev)
+    net0.init_parameters(torch.Generator(device=dev).manual_seed(seed))
+    q1_init = {k: v.clone() for k, v in net0.q1.state_dict().items()}
+    del net0
+    upd0, round0 = SAC._update_step, SAC.train_round
+    sac_t = {"update": [], "round_s": []}
+    kernel_calls = []
+
+    def timed_update_step(self, *args, **kwargs):
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        out = upd0(self, *args, **kwargs)
+        e1.record()
+        sac_t["update"].append((e0, e1))
+        return out
+
+    def timed_round(self, state):
+        torch.cuda.synchronize()
+        t = time.time()
+        out = round0(self, state)
+        torch.cuda.synchronize()
+        sac_t["round_s"].append(time.time() - t)
+        return out
+
+    def recording_kernel(self, st, *args, **kwargs):
+        kernel_calls.append((int(st.shape[0]), bool(kwargs.get("links", False))))
+        return kernel0(self, st, *args, **kwargs)
+
+    def sac_round(setting, mult, root_s):
+        """One round of an off-policy preset through the CLI; its numbers."""
+        sac_t["update"].clear()
+        sac_t["round_s"].clear()
+        kernel_calls.clear()
+        linalg.launches = sl.launches = 0
+        with megastep_links_on(), \
+                mock.patch.object(SAC, "_update_step", timed_update_step), \
+                mock.patch.object(SAC, "train_round", timed_round), \
+                mock.patch.object(ms.Megastep, "kernel", recording_kernel):
+            t0 = time.time()
+            algo_r, state_r = cli.main(
+                ["--env", "DeepMimicWalk-v0", "--setting", setting, "--particles", "35",
+                 "--seed", str(seed), "--env_multiplier", str(mult), "--train", "--max_rounds",
+                 "1", "--root", root_s])
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+        cfg_r = build(setting, particles=35, seed=seed, env_multiplier=mult)
+        with open(os.path.join(cfg_r.log_dir(root_s), "metrics.jsonl")) as fh:
+            recs = [json.loads(line) for line in fh]
+        keys = ["train/loss", "train/critic_loss", "train/actor_loss", "train/episode_reward"]
+        keys += ["train/alpha"] if algo_r.cfg.algo == "sac" else []
+        upd_ms = [e0.elapsed_time(e1) for e0, e1 in sac_t["update"]]
+        round_s = sum(sac_t["round_s"])
+        ckpt_r = CheckpointManager(cfg_r.checkpoint_dir(root_s))
+        row = {"wall_s": wall, "round_s": round_s, "grad_steps": len(upd_ms),
+               "ms_per_grad_step": sum(upd_ms) / max(len(upd_ms), 1),
+               "grad_steps_s": sum(upd_ms) / 1e3, "env_part_s": round_s - sum(upd_ms) / 1e3,
+               "samples_per_s": state_r.total_samples / round_s,
+               "launches": path_counts(algo_r.env),
+               "kernel_batches": sorted(set(kernel_calls)),
+               "global_step": state_r.global_step, "total_samples": state_r.total_samples,
+               "losses": {k: [r[k] for r in recs if k in r] for k in keys},
+               "checkpoints": ckpt_r.steps()}
+        row["env_ms_per_step"] = row["env_part_s"] * 1e3 / algo_r.cfg.steps_per_round
+        print(f"training {setting}, 1 round of {algo_r.cfg.num_envs} envs x "
+              f"{algo_r.cfg.steps_per_round} steps, {algo_r.cfg.updates_per_step} gradient steps "
+              f"per env step, through the CLI [{card}]: {wall:.1f} s; round {round_s:.2f} s = "
+              f"{len(upd_ms)} gradient steps {row['grad_steps_s']:.2f} s "
+              f"({row['ms_per_grad_step']:.2f} ms each) + env steps and inserts "
+              f"{row['env_part_s']:.2f} s ({row['env_ms_per_step']:.2f} ms per env step); "
+              f"{row['samples_per_s']:.1f} samples/s; launches {row['launches']} at batch "
+              f"{row['kernel_batches']}; global_step {state_r.global_step}, total_samples "
+              f"{state_r.total_samples}; losses {json.dumps(row['losses'])}")
+        check(row["launches"] == {"megastep": 0, "megastep_emit_links": 64, "spd_inverse": 0,
+                                  "substep_lin": 0}
+              and row["kernel_batches"] == [(algo_r.cfg.num_envs, True)],
+              f"training {setting}: launches {row['launches']} at {row['kernel_batches']}, "
+              f"want 64 of emit_links at B={algo_r.cfg.num_envs} and nothing else")
+        want_steps = (64 - 256 // algo_r.cfg.num_envs + 1) * algo_r.cfg.num_envs
+        check(state_r.global_step == want_steps and state_r.total_samples == 64 * mult,
+              f"training {setting}: global_step {state_r.global_step} (want {want_steps}), "
+              f"total_samples {state_r.total_samples}")
+        check(all(len(v) == 1 and all(math.isfinite(x) for x in v)
+                  for v in row["losses"].values()),
+              f"training {setting}: losses not finite or not logged: {row['losses']}")
+        check(row["checkpoints"] == [want_steps], f"training {setting}: checkpoints "
+                                                  f"{row['checkpoints']}")
+        return algo_r, state_r, cfg_r, row
+
+    sac_root = os.path.join(work.name, "train_sac")      # phase 21 evaluates its checkpoint
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    algo_s, state_s, _, sac_train = sac_round("deepmimic_sac_pfpn", 16, sac_root)
+    sac_train["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    sac_train["memory_before_gb"] = mem0 / 1e9
+    ring = state_s.buffer
+    ring_gb = ring.data.numel() * ring.data.element_size() / 1e9
+    q1_now = algo_s.net.q1.state_dict()
+    q1_tgt = algo_s.target["q1"].state_dict()
+    moved = {k: (not torch.equal(q1_now[k], q1_init[k]), not torch.equal(q1_tgt[k], q1_init[k]),
+                 not torch.equal(q1_now[k], q1_tgt[k])) for k in q1_init}
+    ckpt_s = CheckpointManager(sac_cfg.checkpoint_dir(sac_root))
+    ck_path = ckpt_s.path(state_s.global_step)
+    ck_mb = os.path.getsize(ck_path) / 1e6
+    ck_fields = sorted(torch.load(ck_path, map_location="cpu", weights_only=True))
+    fresh_s = build_algo(sac_cfg, dev)
+    restored_s = ckpt_s.restore_latest(
+        fresh_s.init_state(torch.Generator(device=dev).manual_seed(1)))
+    same_s = all(torch.equal(a, b) for m_a, m_b in ((algo_s.net, fresh_s.net),
+                                                     (algo_s.target, fresh_s.target))
+                 for a, b in zip(m_a.state_dict().values(), m_b.state_dict().values()))
+    opt_a, opt_b = algo_s.opt.state_dict()["state"], fresh_s.opt.state_dict()["state"]
+    same_opt_s = opt_a.keys() == opt_b.keys() and all(
+        torch.equal(opt_a[i][k].cpu(), opt_b[i][k].cpu())
+        for i in opt_a for k in ("step", "exp_avg", "exp_avg_sq"))
+    restored_ring = restored_s.buffer.size
+    del fresh_s, restored_s
+    sac_train.update(ring_shape=list(ring.data.shape), ring_gb=ring_gb,
+                     ring_device=str(ring.data.device), ring_size=ring.size,
+                     checkpoint_mb=ck_mb, checkpoint_fields=ck_fields)
+    print(f"SAC ring on the card: {tuple(ring.data.shape)} float32 on {ring.data.device}, "
+          f"{ring_gb:.3f} GB, {ring.size} transitions held; torch.cuda.max_memory_allocated "
+          f"over the round {sac_train['max_memory_allocated_gb']:.3f} GB, of which "
+          f"{sac_train['memory_before_gb']:.3f} GB held before it [{card}]; checkpoint "
+          f"{ck_mb:.2f} MB, fields {ck_fields}; restored with an empty ring ({restored_ring})")
+    check(tuple(ring.data.shape) == SAC_RING and ring.data.is_cuda and ring.size == 1024,
+          f"SAC ring: {tuple(ring.data.shape)} on {ring.data.device}, size {ring.size}")
+    check(all(all(v) for v in moved.values()),
+          f"SAC training: q1 online moved / target moved / apart: {moved}")
+    check("buffer" not in ck_fields and ck_mb < 100 and restored_ring == 0,
+          f"SAC checkpoint: fields {ck_fields}, {ck_mb:.1f} MB, restored ring {restored_ring}")
+    check(same_s and same_opt_s, "SAC checkpoint: does not restore the same parameters, "
+          "targets and Adam state")
+
+    # a profiler window over gradient steps on the filled ring
+    from torch.profiler import ProfilerActivity, profile
+
+    def grad_steps(n):
+        gstep, stats = state_s.global_step, state_s.head_stats
+        for _ in range(n):
+            batch = ring.sample(256, state_s.generator)
+            gstep, stats, _ = algo_s._update_step(batch, algo_s.update_draws(
+                256, state_s.generator), gstep, stats, state_s.generator)
+
+    grad_steps(2)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        grad_steps(SAC_PROFILE_STEPS)
+        torch.cuda.synchronize()
+    sac_profile = profile_summary(prof, SAC_PROFILE_STEPS)
+    sac_train["profile"] = sac_profile
+    if sac_profile["device_time"]:
+        print(f"SAC gradient steps, {SAC_PROFILE_STEPS} at batch 256 under torch.profiler "
+              f"[{card}]: window {sac_profile['window_ms']:.2f} ms, device busy "
+              f"{sac_profile['busy_ms']:.2f} ms ({sac_profile['busy_share']:.1%}), "
+              f"{sac_profile['kernels_per_step']:.0f} kernel launches per gradient step")
+        for row in sac_profile["top"]:
+            print(f"  {row['ms']:9.3f} ms  {row['calls']:6d} calls  {row['kernel']}")
+    else:
+        print("SAC gradient steps under torch.profiler: the trace shows no device time")
+    del algo_s, state_s, ring
+    torch.cuda.empty_cache()
+
+    # ---- 20. one round of each other off-policy preset ----------------------------------
+    other_rounds = {}
+    for setting in ("deepmimic_sac_gauss", "deepmimic_ddpg_pfpn", "deepmimic_ddpg_gauss"):
+        with tempfile.TemporaryDirectory() as root_o:
+            algo_o, state_o, _, other_rounds[setting] = sac_round(setting, 8, root_o)
+        del algo_o, state_o
+        torch.cuda.empty_cache()
 
     # ---- 16. evaluation through the CLI, and the export --------------------------------
     from pfpn_torch.harness import eval as eval_mod
@@ -1378,6 +1644,55 @@ def main():
     check(export_rel <= 1e-4, f"export: returns {export_rel:.3g} from the checkpoint's play")
     del algo_c, algo_x, eval_algos
 
+    # ---- 21. evaluation through the CLI of the SAC checkpoint, and its export -----------
+    eval_algos = []
+    linalg.launches = sl.launches = 0
+    sac_args = ["--env", "DeepMimicWalk-v0", "--setting", "deepmimic_sac_pfpn", "--particles",
+                "35", "--seed", str(seed), "--env_multiplier", "16", "--root", sac_root]
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with mock.patch.object(eval_mod, "build_algo", capturing_build_algo):
+        _, sac_traj_ret = cli.main(sac_args)
+    torch.cuda.synchronize()
+    sac_eval_s = time.time() - t0
+    sac_eval_counts = path_counts(eval_algos[0].env)
+    algo_c = build_algo(sac_cfg, dev)
+    ckpt_s.restore_latest(algo_c.init_state(torch.Generator(device=dev).manual_seed(seed)))
+    sac_ev_ret = eval3(algo_c)
+    sac_eval_rel = float(np.max(np.abs(sac_traj_ret - sac_ev_ret) / np.abs(sac_ev_ret)))
+    print(f"evaluation through the CLI (no --train) of phase 19's SAC checkpoint [{card}]: "
+          f"{sac_eval_s:.1f} s; returns {sac_traj_ret.tolist()}, SAC.evaluate from the same "
+          f"start states {sac_ev_ret.tolist()} (largest relative gap {sac_eval_rel:.3g}); "
+          f"launches {sac_eval_counts}")
+    check(sac_eval_rel <= 1e-4, f"SAC evaluation: returns {sac_eval_rel:.3g} from evaluate's")
+    check(sac_eval_counts == {"megastep": 600, "megastep_emit_links": 0, "spd_inverse": 0,
+                              "substep_lin": 0}, f"SAC evaluation: launches {sac_eval_counts}")
+    with tempfile.TemporaryDirectory() as cwd_tmp, contextlib.chdir(cwd_tmp):
+        npz_path = os.path.abspath(export_policy.main(sac_args))
+        with np.load(npz_path) as z:
+            tops = sorted({k.split("/")[1] for k in z.files if k.startswith("params/")})
+        check(tops == ["actor_trunk", "head", "log_alpha", "q1", "q2"],
+              f"SAC export: params {tops}")
+        algo_x = build_algo(sac_cfg, dev)
+        load_policy(algo_x, npz_path)
+        x_ret = eval3(algo_x)
+    check(sorted(os.listdir("results/policies")) == policies,
+          "SAC export: the repository's results/policies/ changed")
+    with torch.no_grad():
+        for p in algo_c.net.parameters():
+            p.copy_(p.half().float())
+    same_npz = all(torch.equal(a, b) for a, b in zip(algo_c.net.state_dict().values(),
+                                                     algo_x.net.state_dict().values()))
+    c16_ret = eval3(algo_c)
+    sac_export_rel = float(np.max(np.abs(x_ret - c16_ret) / np.abs(c16_ret)))
+    print(f"export of the SAC checkpoint, {os.path.basename(npz_path)} (params {tops}), played "
+          f"back: returns {x_ret.tolist()} against the checkpoint's play at the npz's fp16 "
+          f"parameters {c16_ret.tolist()} (largest relative gap {sac_export_rel:.3g})")
+    check(same_npz, "SAC export: the npz does not load the checkpoint's fp16 parameters")
+    check(sac_export_rel <= 1e-4, f"SAC export: returns {sac_export_rel:.3g} from the "
+                                  "checkpoint's play")
+    del algo_c, algo_x, eval_algos
+
     # ---- 10, joined ----------------------------------------------------------------------
     side_s = time.time() - t_side
     off_rc = off_proc.wait(timeout=1500)
@@ -1390,7 +1705,8 @@ def main():
     ret_off, off_counts, play_off_s = off["return_mean"], off["launches"], off["wall_s"]
     steps_off, mid_rel = off["env_steps"], off["mid_rel"]
     print(f"play, megastep off: 10 deterministic Walk episodes of {PLAY_OFF_STEPS} steps in "
-          f"{play_off_s:.1f} s, in a second process beside phases 14-16 ({side_s:.1f} s): "
+          f"{play_off_s:.1f} s, in a second process beside phases 14-16 and 18-21 "
+          f"({side_s:.1f} s): "
           f"return mean {ret_off:.2f} min {off['return_min']:.2f} max {off['return_max']:.2f} "
           f"(JAX {JAX_PLAY_RETURN}); at step {PLAY_CHECK_STEP} mean {off['mid_off']:.2f} against "
           f"the megastep play's {off['mid_on']:.2f}, largest per-episode gap "
@@ -1465,14 +1781,23 @@ def main():
         "launches": (launches + train_counts["megastep_emit_links"]
                      + sum(r["launches"]["megastep"] for r in task_plays.values())
                      + sum(r["launches"]["megastep_emit_links"] for r in new_rounds.values())
-                     + eval_counts["megastep"]),
+                     + eval_counts["megastep"] + sac_play_counts["megastep"]
+                     + sac_train["launches"]["megastep_emit_links"]
+                     + sum(r["launches"]["megastep_emit_links"] for r in other_rounds.values())
+                     + sac_eval_counts["megastep"]),
         "launches_by_variant": {
             "default": {"play": launches, "eval_cli": eval_counts["megastep"],
                         **{f"play_{k}": r["launches"]["megastep"]
-                           for k, r in task_plays.items()}},
+                           for k, r in task_plays.items()},
+                        "play_sac": sac_play_counts["megastep"],
+                        "eval_cli_sac": sac_eval_counts["megastep"]},
             "emit_links": {"train": train_counts["megastep_emit_links"],
                            **{f"train_{k}": r["launches"]["megastep_emit_links"]
-                              for k, r in new_rounds.items()}}},
+                              for k, r in new_rounds.items()},
+                           "train_deepmimic_sac_pfpn_mult16":
+                               sac_train["launches"]["megastep_emit_links"],
+                           **{f"train_{k}_mult8": r["launches"]["megastep_emit_links"]
+                              for k, r in other_rounds.items()}}},
         "max_abs_err": max(v for k, v in e1.items() if k != "flags"),
         "max_err": max_err,
         "ms": kernel_ms,
@@ -1504,6 +1829,11 @@ def main():
                      "rel": eval_rel, "export_rel": export_rel},
         "multitask_env_steps_per_s": mt_sps, "multitask_step_ms": mt_ms,
         "multitask_megastep_ms": mt_kernel_ms, "multitask_profile": mt_profile,
+        "sac_play": sac_play, "sac_train_mult16": sac_train,
+        "off_policy_rounds_mult8": other_rounds,
+        "sac_eval_cli": {"s": sac_eval_s, "returns": sac_traj_ret.tolist(),
+                         "evaluate": sac_ev_ret.tolist(), "rel": sac_eval_rel,
+                         "export_rel": sac_export_rel},
     }, {
         "name": "spd_inverse",
         "route": "cuda",
@@ -1553,7 +1883,7 @@ def main():
         "play_at_check_step": {"step": PLAY_CHECK_STEP, "megastep_off": off["mid_off"],
                                "megastep": off["mid_on"], "largest_rel_gap": mid_rel},
         "play_megastep_off_s": play_off_s,
-        "play_megastep_off_beside": "phases 14-16, in a second process",
+        "play_megastep_off_beside": "phases 14-16 and 18-21, in a second process",
         "megastep_off_substep_split": split,
     }]
     print(f"chip_smoke: {time.time() - run_t0:.1f} s in all, of which the megastep-off "

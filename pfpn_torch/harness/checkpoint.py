@@ -3,12 +3,15 @@
 Counterpart of ``pfpn_tpu/harness/checkpoint.py``, in the port's own
 format: one ``<step>.pt`` file per checkpoint in
 ``RunConfig.checkpoint_dir`` (the JAX package's directory scheme), holding
-the parameters and normalizer, the Adam state, the PFPN activation
-statistics, the env states and observations, the generator's state, the
-counters and the episode returns. Resume is implicit: :meth:`restore_latest`
-at startup. Only tensors, numbers and containers are stored, so files load
-with ``weights_only=True``. Reading the JAX package's orbax checkpoints is
-not supported.
+every field of the run's state (``PPOState`` or ``SACState``): the
+parameters and normalizer (and SAC's targets), the Adam state, the PFPN
+activation statistics, the env states and observations, the generator's
+state, the counters and the episode returns. The off-policy replay ring is
+not saved (``checkpoint.py:10-28``): a restored run keeps its template's
+fresh, empty ring. Resume is implicit: :meth:`restore_latest` at startup.
+Only tensors, numbers and containers are stored, so files load with
+``weights_only=True``. Reading the JAX package's orbax checkpoints is not
+supported.
 """
 
 from __future__ import annotations
@@ -19,10 +22,12 @@ import re
 from typing import Any, Optional
 
 import torch
+from torch import nn
 
-from ..algos.ppo import PPOState
+from ..algos.ppo import ClippedAdam
 
 _FILE = re.compile(r"^(\d+)\.pt$")
+_SKIP_FIELDS = ("buffer",)     # the replay ring
 
 
 def _to_tree(x: Any) -> Any:
@@ -64,21 +69,20 @@ class CheckpointManager:
     def path(self, step: int) -> str:
         return os.path.join(self.directory, f"{step}.pt")
 
-    def save(self, step: int, state: PPOState) -> str:
+    def save(self, step: int, state: Any) -> str:
         """Write ``<step>.pt`` (through a temporary file, so a crash leaves
         no partial checkpoint) and drop the older ones."""
-        payload = {
-            "net": state.net.state_dict(),
-            "opt": state.opt.state_dict(),
-            "head_stats": state.head_stats,
-            "env_state": _to_tree(state.env_state),
-            "obs": state.obs,
-            "generator": state.generator.get_state(),
-            "global_step": state.global_step,
-            "total_samples": state.total_samples,
-            "ep_return": state.ep_return,
-            "last_ep_return": state.last_ep_return,
-        }
+        payload = {}
+        for f in dataclasses.fields(state):
+            v = getattr(state, f.name)
+            if f.name in _SKIP_FIELDS:
+                continue
+            if isinstance(v, (nn.Module, ClippedAdam)):
+                payload[f.name] = v.state_dict()
+            elif isinstance(v, torch.Generator):
+                payload[f.name] = v.get_state()
+            else:
+                payload[f.name] = _to_tree(v)
         path = self.path(step)
         tmp = path + ".tmp"
         torch.save(payload, tmp)
@@ -87,8 +91,8 @@ class CheckpointManager:
             os.unlink(self.path(old))
         return path
 
-    def restore_latest(self, state: PPOState) -> Optional[PPOState]:
-        """Load the newest checkpoint into ``state`` (its module and
+    def restore_latest(self, state: Any) -> Optional[Any]:
+        """Load the newest checkpoint into ``state`` (its modules and
         optimizer in place) and return the restored state, or None when the
         directory holds none."""
         step = self.latest_step()
@@ -96,14 +100,15 @@ class CheckpointManager:
             return None
         ck = torch.load(self.path(step), map_location="cpu", weights_only=True)
         device = state.obs.device
-        state.net.load_state_dict(ck["net"])
-        state.opt.load_state_dict(ck["opt"])
-        state.generator.set_state(ck["generator"])
-        return state.replace(
-            head_stats=_from_tree(state.head_stats, ck["head_stats"], device),
-            env_state=_from_tree(state.env_state, ck["env_state"], device),
-            obs=ck["obs"].to(device),
-            global_step=int(ck["global_step"]),
-            total_samples=int(ck["total_samples"]),
-            ep_return=ck["ep_return"].to(device),
-            last_ep_return=ck["last_ep_return"].to(device))
+        fields = {}
+        for f in dataclasses.fields(state):
+            v = getattr(state, f.name)
+            if f.name in _SKIP_FIELDS:
+                continue
+            if isinstance(v, (nn.Module, ClippedAdam)):
+                v.load_state_dict(ck[f.name])
+            elif isinstance(v, torch.Generator):
+                v.set_state(ck[f.name])
+            else:
+                fields[f.name] = _from_tree(v, ck[f.name], device)
+        return state.replace(**fields)

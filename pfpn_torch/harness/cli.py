@@ -3,7 +3,10 @@
   python -m pfpn_torch --env DeepMimicWalk-v0 \\
       --setting deepmimic_dppo_pfpn --particles 35 --seed 34114 --train
 
-trains on the CUDA card; ``--device cpu`` trains on the CPU. Without
+trains on the CUDA card; ``--device cpu`` trains on the CPU. The settings
+are the JAX package's DPPO presets (``deepmimic_dppo_pfpn``, ``_gauss``,
+``_dis``) and its off-policy ones (``deepmimic_sac_pfpn``, ``_sac_gauss``,
+``_ddpg_pfpn``, ``_ddpg_gauss``). Without
 ``--train`` it evaluates the run's latest checkpoint, as the JAX package
 does: three deterministic episodes, their returns printed and their link
 trajectories written to ``<root>/log_<env>/<setting>.../<seed>/trajectory.npz``

@@ -1,7 +1,8 @@
 """Policy evaluation and trajectory export (the CLI without ``--train``).
 
 Counterpart of ``pfpn_tpu/harness/eval.py``: deterministic episodes of the
-policy in the latest checkpoint, each env's link positions and orientations
+policy in the latest checkpoint (any preset the port has, PPO's or SAC's
+and DDPG's), each env's link positions and orientations
 recorded at every frame, written to ``trajectory.npz`` in the run's log
 directory in the JAX package's layout (``link_pos`` (T, E, 15, 3),
 ``link_quat`` (T, E, 15, 4), ``done`` (T, E), ``link_names``), which

@@ -2,8 +2,11 @@
 the port has the DPPO presets (``settings.py:62-87``): the particle head
 (``deepmimic_dppo_pfpn``, the headline), the Gaussian head
 (``deepmimic_dppo_gauss``) and the discretized action space
-(``deepmimic_dppo_dis``). The other presets raise, naming the ROADMAP item
-that ports their algorithm."""
+(``deepmimic_dppo_dis``); and the off-policy presets (``:139-172``):
+``deepmimic_sac_pfpn``, ``deepmimic_sac_gauss``, ``deepmimic_ddpg_pfpn``
+and ``deepmimic_ddpg_gauss``, one env (the reference's exact loop) times
+``env_multiplier``. The A3C and IMPALA presets raise, naming the ROADMAP
+item that ports their algorithm."""
 
 from __future__ import annotations
 
@@ -17,10 +20,8 @@ from .config import (
 
 # the JAX package's other presets, by the algorithm that waits for a port
 _NOT_PORTED = {
-    "a3c": "A3C (ROADMAP bring-up order, item 2: algos/a2c.py)",
-    "impala": "IMPALA (ROADMAP bring-up order, item 2: algos/vtrace.py)",
-    "sac": "SAC with the squashed heads (ROADMAP bring-up order, item 1: algos/sac.py)",
-    "ddpg": "DDPG with the squashed heads (ROADMAP bring-up order, item 1: algos/sac.py)",
+    "a3c": "A3C (ROADMAP bring-up order, item 1: algos/a2c.py)",
+    "impala": "IMPALA (ROADMAP bring-up order, item 1: algos/vtrace.py)",
 }
 
 
@@ -31,11 +32,38 @@ def _dppo_worker(**kw) -> WorkerSettings:
                                batch_size=32, unroll_length=512, **kw)
 
 
+def _sac_worker(**kw) -> WorkerSettings:
+    # deepmimic_sac_base.py:4-13: one batch-256 gradient step per sample
+    return dataclasses.replace(WorkerSettings(), norm_clip=1.0, opt_epochs=None,
+                               batch_size=256, unroll_length=1,
+                               buffer_capacity=1_000_000, observations=0, **kw)
+
+
+# the off-policy presets: (algo, head kind, lr_actor of 1e-4 for the PFPN head)
+_OFF_POLICY = {"deepmimic_sac_pfpn": ("sac", "particle"),
+               "deepmimic_sac_gauss": ("sac", "gaussian"),
+               "deepmimic_ddpg_pfpn": ("ddpg", "particle"),
+               "deepmimic_ddpg_gauss": ("ddpg", "gaussian")}
+
+
 def build(setting: str, particles: Optional[int] = None,
           env: str = "DeepMimicWalk-v0", seed: int = 1,
           max_samples: int = 15_000_000, soft: bool = False,
           env_multiplier: int = 1) -> RunConfig:
     name = setting.split(".")[-1]
+    if name in _OFF_POLICY:
+        algo, kind = _OFF_POLICY[name]
+        if kind == "particle":
+            worker = _sac_worker(lr_actor=1e-4)
+            # deepmimic_sac_pfpn.py:6
+            head = HeadSettings(kind="particle", particles=particles or 35, resample=-1,
+                                resample_interval=12000)
+        else:
+            worker = _sac_worker()
+            head = HeadSettings(kind="gaussian", particles=None)
+        return RunConfig(name=name, algo=algo, head=head, network=NetworkSettings(),
+                         worker=worker, workers=1, env=env, seed=seed,
+                         max_samples=max_samples, env_multiplier=env_multiplier)
     if name == "deepmimic_dppo_pfpn":
         worker = _dppo_worker(lr_actor=1e-4)
         head = HeadSettings(kind="particle", particles=particles or 35, resample=-1,

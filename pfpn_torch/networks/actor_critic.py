@@ -9,7 +9,8 @@ initialization (:meth:`ActorCritic.init_parameters`,
 ``actor_critic.py:81``), :meth:`~ActorCritic.init_stats`, the policy API
 (``act``, ``act_deterministic``, ``log_prob``, ``entropy``, ``value``,
 ``:149-178``), and :func:`load_jax_params` and :func:`export_jax_params`,
-which carry weights between the packages. Value normalization
+which carry weights between the packages, the off-policy networks' too
+(``algos/sac.py``'s ``q1``, ``q2`` and the 0-d ``log_alpha``). Value normalization
 (``value_norm.py``, ``_clip_with_gradient``) is off in every shipped preset
 and comes later; ``harness/build.py`` refuses it.
 """
@@ -49,7 +50,10 @@ class ACConfig:
 
 
 class ActorCritic(nn.Module):
-    def __init__(self, cfg: ACConfig):
+    """``with_critic=False`` leaves out the value MLP, as SAC's parameters
+    do (``algos/sac.py:135-136``)."""
+
+    def __init__(self, cfg: ACConfig, with_critic: bool = True):
         super().__init__()
         self.cfg = cfg
         self.norm = Normalizer((cfg.obs_dim,))
@@ -64,7 +68,7 @@ class ActorCritic(nn.Module):
             self.actor_trunk = MLP([feat, *cfg.actor_shape], last_activation=F.relu6)
             actor_feat = cfg.actor_shape[-1]
         self.head = head_module(cfg.head, actor_feat)
-        self.critic = MLP([feat, *cfg.critic_shape, 1])
+        self.critic = MLP([feat, *cfg.critic_shape, 1]) if with_critic else None
 
     def init_parameters(self, generator: Optional[torch.Generator]) -> None:
         """The reference's initialization (actor_critic.py:81): every trunk
@@ -85,14 +89,17 @@ class ActorCritic(nn.Module):
             return {}
         return init_activation_stats(self.cfg.head, self.head.particles.device)
 
-    def _features(self, obs: torch.Tensor) -> torch.Tensor:
+    def normalized(self, obs: torch.Tensor) -> torch.Tensor:
+        """The clipped, normalized observation (actor_critic.py:106)."""
         cfg = self.cfg
         if cfg.normalize_state:
-            x = self.norm(obs, clip=cfg.clip_state)
-        elif cfg.clip_state:
-            x = torch.clamp(obs, -cfg.clip_state, cfg.clip_state)
-        else:
-            x = obs
+            return self.norm(obs, clip=cfg.clip_state)
+        if cfg.clip_state:
+            return torch.clamp(obs, -cfg.clip_state, cfg.clip_state)
+        return obs
+
+    def _features(self, obs: torch.Tensor) -> torch.Tensor:
+        x = self.normalized(obs)
         return self.common(x) if self.common is not None else x
 
     def actor_features(self, obs: torch.Tensor) -> torch.Tensor:
@@ -128,7 +135,8 @@ def load_jax_params(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     (in, out) becomes ``<mlp>.layers.<i>.weight`` (out, in); the head's
     linear layers (``fc_policy``, ``fc_mu``, ``fc_log_sigma``) likewise,
     its other arrays (``particles``, ``particles_log_std``, ``log_sigma``)
-    keep their names and shapes."""
+    keep their names and shapes, and so does a top-level array such as
+    SAC's 0-d ``params/log_alpha``."""
     state: Dict[str, torch.Tensor] = {}
     for key, val in flat.items():
         t = torch.tensor(np.asarray(val, dtype=np.float32))
@@ -139,7 +147,9 @@ def load_jax_params(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         if parts[0] != "params":
             raise KeyError(f"unexpected key {key!r}")
         parts = parts[1:]
-        if parts[0] == "head":
+        if len(parts) == 1:         # a top-level array (SAC's log_alpha)
+            state[parts[0]] = t
+        elif parts[0] == "head":
             if len(parts) == 3:     # a linear layer of the head
                 state[f"head.{parts[1]}.{_linear_name(parts[2])}"] = _linear(parts[2], t)
             else:
@@ -151,7 +161,7 @@ def load_jax_params(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     return state
 
 
-def export_jax_params(net: ActorCritic) -> Dict[str, np.ndarray]:
+def export_jax_params(net: nn.Module) -> Dict[str, np.ndarray]:
     """The reverse of :func:`load_jax_params`: ``net``'s parameters and
     normalizer as the JAX package's flat ``params/...`` and ``norm/...``
     arrays (fp32), weights back in (in, out)."""
@@ -159,7 +169,9 @@ def export_jax_params(net: ActorCritic) -> Dict[str, np.ndarray]:
     for key, t in net.state_dict().items():
         a = t.detach().cpu().numpy()
         parts = key.split(".")
-        if parts[0] == "norm":
+        if len(parts) == 1:         # a top-level array (SAC's log_alpha)
+            flat[f"params/{key}"] = a
+        elif parts[0] == "norm":
             flat[f"norm/{parts[1]}"] = a
         elif parts[0] == "head":
             if len(parts) == 3:     # a linear layer of the head

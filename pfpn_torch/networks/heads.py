@@ -1,7 +1,6 @@
 """Policy heads: Gaussian, factored-categorical and particle-filtering.
 
-Counterpart of ``pfpn_tpu/networks/heads.py`` for the DPPO (unsquashed)
-heads. Each head is a frozen config dataclass and an ``nn.Module`` holding
+Counterpart of ``pfpn_tpu/networks/heads.py``. Each head is a frozen config dataclass and an ``nn.Module`` holding
 its parameters, with the JAX package's ``init_head``, ``head_dist``,
 ``sample_with_log_prob``, ``log_prob_of``, ``entropy_of`` and
 ``deterministic_action`` as methods:
@@ -19,7 +18,13 @@ its parameters, with the JAX package's ``init_head``, ``head_dist``,
   (:func:`init_activation_stats`, :func:`update_activation_stats`,
   ``heads.py:144``, ``:305``).
 
-The tanh-squashed heads (SAC, DDPG) come with their algorithms.
+The Gaussian and particle heads tanh-squash when ``squash`` is set (SAC
+and DDPG): actions are drawn or picked in (-1, 1) and mapped onto the
+env's bounds ``action_low`` .. ``action_high`` (:func:`denormalize_action`,
+``heads.py:204-220``); the squashed particle grid is the midpoints
+-1 + (2 / N)(i + 1/2) in atanh space (``heads.py:97-128``). A squashed draw
+takes its noise from :meth:`draw` (a dict of tensors), so that a test can
+feed the JAX package's draws to ``sample_with_log_prob``.
 """
 
 from __future__ import annotations
@@ -34,6 +39,7 @@ from torch import nn
 from ..distributions import categorical as cat
 from ..distributions import gaussian as gauss
 from ..distributions import particle as pfp
+from ..sim.dynamics import const
 from .mlp import init_linear_
 
 
@@ -45,6 +51,10 @@ class GaussianHead:
     variabilize_sigma: bool = False
     max_sigma: Optional[float] = None
     sigma_eps: float = 2e-9
+    squash: bool = False
+    # the env's bounds, for the squashed head's (de)normalization
+    action_low: Optional[np.ndarray] = None
+    action_high: Optional[np.ndarray] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,22 +69,61 @@ class ParticleHead:
     particles: int = 35
     init_sigma: Optional[float] = None
     fixed_sigma: bool = False
+    squash: bool = False            # tanh-squash after the mixture (SAC, DDPG)
     resample: int = -1
     resample_interval: int = 2000
     resample_threshold: Optional[float] = None
+    action_low: Optional[np.ndarray] = None
+    action_high: Optional[np.ndarray] = None
 
 
 def particle_init_tables(cfg: ParticleHead):
-    """(loc, log_std) [D, N] float32 of the non-squashed grid
-    (heads.py:111-141), computed in float64 as the JAX package does."""
+    """(loc, log_std) [D, N] float32 of the particle grid (heads.py:95-141),
+    computed in float64 as the JAX package does. Unsquashed: endpoints
+    linspace(-1, 1, N), std 2 / (N - 1) or ``init_sigma``. Squashed: the
+    midpoints -1 + (2 / N)(i + 1/2) taken to atanh space, std the distance
+    to the farther neighbour there, or with ``init_sigma`` the atanh of the
+    interval loc +- init_sigma (clipped to +-(1 - 1e-6)), its larger side."""
     d, n = cfg.action_dim, cfg.particles
     u, l = 1.0, -1.0
-    loc = np.broadcast_to(l + (u - l) / (n - 1) * np.arange(n), (d, n))
+    if not cfg.squash:
+        loc = np.broadcast_to(l + (u - l) / (n - 1) * np.arange(n), (d, n))
+        std = np.full((d, n), float(cfg.init_sigma) if cfg.init_sigma else (u - l) / (n - 1))
+        return loc.astype(np.float32), np.log(std).astype(np.float32)
+    loc_t = np.broadcast_to(l + (u - l) / n * (np.arange(n) + 0.5), (d, n))
+    loc = np.arctanh(loc_t)
     if cfg.init_sigma:
-        std = np.full((d, n), float(cfg.init_sigma))
+        sigma = float(cfg.init_sigma)
+        std = np.maximum(loc - np.arctanh(np.maximum(1e-6 - 1, loc_t - sigma)),
+                         np.arctanh(np.minimum(1 - 1e-6, loc_t + sigma)) - loc)
     else:
-        std = np.full((d, n), (u - l) / (n - 1))
+        assert n > 3
+        gaps = np.diff(loc, axis=1)
+        std = np.maximum(np.concatenate([gaps[:, :1], gaps], 1),
+                         np.concatenate([gaps, gaps[:, -1:]], 1))
     return loc.astype(np.float32), np.log(std).astype(np.float32)
+
+
+def _bounds(cfg, a: torch.Tensor):
+    """(scale, offset) of the env's bounds, as fp32 tensors on ``a``'s
+    device (cached: no copy per call), or None when the head does not squash
+    or has no bounds (heads.py:204-220)."""
+    if not getattr(cfg, "squash", False) or cfg.action_low is None:
+        return None
+    high, low = np.asarray(cfg.action_high), np.asarray(cfg.action_low)
+    return const(0.5 * (high - low), a), const(0.5 * (high + low), a)
+
+
+def denormalize_action(cfg, a: torch.Tensor) -> torch.Tensor:
+    """A squashed action in (-1, 1) on the env's bounds."""
+    b = _bounds(cfg, a)
+    return a if b is None else a * b[0] + b[1]
+
+
+def normalize_action(cfg, a: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`denormalize_action`."""
+    b = _bounds(cfg, a)
+    return a if b is None else (a - b[1]) / b[0]
 
 
 class ParticleHeadModule(nn.Module):
@@ -119,24 +168,46 @@ class ParticleHeadModule(nn.Module):
         loc, scale = self.loc_scale()
         return logits, loc, scale
 
+    def draw(self, batch_shape, generator: Optional[torch.Generator]) -> Dict:
+        """The noise of a squashed draw for features of ``batch_shape``."""
+        shape = tuple(batch_shape) + (self.cfg.action_dim, self.cfg.particles)
+        gumbel, eps = pfp.rsample_squashed_draws(shape, generator, self.particles.device)
+        return {"gumbel": gumbel, "eps": eps}
+
     def sample_with_log_prob(self, feat: torch.Tensor,
-                             generator: Optional[torch.Generator]):
+                             generator: Optional[torch.Generator],
+                             draws: Optional[Dict] = None):
         """(action, log_prob, aux) of a draw (heads.py:224); aux carries the
-        particle weights for the activation statistics."""
+        particle weights for the activation statistics, and for the squashed
+        head the pre-tanh value. The squashed draw is reparameterized, its
+        noise ``draws`` or :meth:`draw`'s; the action is on the env's bounds
+        and its log-prob that of the action in (-1, 1)."""
         logits, loc, scale = self.dist(feat)
+        aux = {"probs": pfp.probs(logits)}
+        if self.cfg.squash:
+            draws = draws if draws is not None else self.draw(feat.shape[:-1], generator)
+            a_t, pre = pfp.rsample_squashed_from(logits, loc, scale, draws["gumbel"],
+                                                 draws["eps"])
+            lp = pfp.log_prob(logits, loc, scale, a_t, squash=True, pre_tanh=pre)
+            return denormalize_action(self.cfg, a_t), lp, {"pre_tanh": pre, **aux}
         a, _ = pfp.sample(logits, loc, scale, generator)
-        return a, pfp.log_prob(logits, loc, scale, a), {"probs": pfp.probs(logits)}
+        return a, pfp.log_prob(logits, loc, scale, a), aux
 
     def log_prob_of(self, feat: torch.Tensor, action: torch.Tensor) -> torch.Tensor:
         logits, loc, scale = self.dist(feat)
+        if self.cfg.squash:
+            return pfp.log_prob(logits, loc, scale, normalize_action(self.cfg, action),
+                                squash=True)
         return pfp.log_prob(logits, loc, scale, action)
 
     def entropy_of(self, feat: torch.Tensor) -> torch.Tensor:
         return torch.sum(pfp.entropy(self.dist(feat)[0]), dim=-1)
 
     def deterministic_action(self, feat: torch.Tensor) -> torch.Tensor:
-        """heads.py:289: the particle mode."""
+        """heads.py:283: the particle mode; squashed, on the env's bounds."""
         logits, loc, _ = self.dist(feat)
+        if self.cfg.squash:
+            return denormalize_action(self.cfg, pfp.mode(logits, loc, squash=True))
         return pfp.mode(logits, loc)
 
 
@@ -184,21 +255,39 @@ class GaussianHeadModule(nn.Module):
             return mu, torch.exp(torch.tanh(log_sigma) * float(scale) + float(offset))
         return mu, torch.exp(log_sigma) + cfg.sigma_eps
 
+    def draw(self, batch_shape, generator: Optional[torch.Generator]) -> Dict:
+        """The noise of a draw for features of ``batch_shape``."""
+        shape = tuple(batch_shape) + (self.cfg.action_dim,)
+        return {"eps": torch.randn(shape, generator=generator,
+                                   device=self.fc_mu.weight.device)}
+
     def sample_with_log_prob(self, feat: torch.Tensor,
-                             generator: Optional[torch.Generator]):
+                             generator: Optional[torch.Generator],
+                             draws: Optional[Dict] = None):
+        """(action, log_prob, {}) of a reparameterized draw mu + sigma eps,
+        its noise ``draws`` or :meth:`draw`'s; squashed, the action is
+        tanh of it on the env's bounds (heads.py:224-231)."""
         mu, sigma = self.dist(feat)
-        x = gauss.sample(mu, sigma, generator)
+        draws = draws if draws is not None else self.draw(feat.shape[:-1], generator)
+        x = mu + sigma * draws["eps"]
+        if self.cfg.squash:
+            return (denormalize_action(self.cfg, torch.tanh(x)),
+                    gauss.log_prob_squashed(mu, sigma, x), {})
         return x, gauss.log_prob(mu, sigma, x), {}
 
     def log_prob_of(self, feat: torch.Tensor, action: torch.Tensor) -> torch.Tensor:
         mu, sigma = self.dist(feat)
+        if self.cfg.squash:
+            pre = gauss.atanh_safe(normalize_action(self.cfg, action))
+            return gauss.log_prob_squashed(mu, sigma, pre)
         return gauss.log_prob(mu, sigma, action)
 
     def entropy_of(self, feat: torch.Tensor) -> torch.Tensor:
         return gauss.entropy(self.dist(feat)[1])
 
     def deterministic_action(self, feat: torch.Tensor) -> torch.Tensor:
-        return self.dist(feat)[0]
+        mu = self.dist(feat)[0]
+        return denormalize_action(self.cfg, torch.tanh(mu)) if self.cfg.squash else mu
 
 
 class CategoricalHeadModule(nn.Module):

@@ -12,6 +12,7 @@ from __future__ import annotations
 
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -31,14 +32,15 @@ class Normalizer(nn.Module):
 
     @torch.no_grad()
     def update_moving_average(self, batch: torch.Tensor, global_step: int) -> None:
-        """Reference utils.py:60-68, as normalizer.py:44 computes it in fp32."""
-        s = torch.tensor(float(global_step), dtype=torch.float32, device=batch.device)
-        decay = torch.clamp((1.0 + s) / (10.0 + s), max=0.9999)
+        """Reference utils.py:60-68, as normalizer.py:44 computes it in fp32
+        (the decay on the host, in numpy's fp32: no copy to the device)."""
+        s = np.float32(global_step)
+        decay = np.minimum(np.float32(0.9999), (np.float32(1.0) + s) / (np.float32(10.0) + s))
+        decay, rest = float(decay), float(np.float32(1.0) - decay)
         m = torch.mean(batch, 0)
         v = torch.var(batch, 0, correction=0)
-        self.mean.copy_(decay * self.mean + (1.0 - decay) * m)
-        self.std.copy_(torch.clamp(decay * self.std + (1.0 - decay) * torch.sqrt(v),
-                                   min=1e-6))
+        self.mean.copy_(decay * self.mean + rest * m)
+        self.std.copy_(torch.clamp(decay * self.std + rest * torch.sqrt(v), min=1e-6))
 
     @torch.no_grad()
     def update_welford(self, batch: torch.Tensor) -> None:

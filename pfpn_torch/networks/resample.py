@@ -1,13 +1,16 @@
 """PFPN particle resampling.
 
-Counterpart of ``pfpn_tpu/networks/resample.py`` for the non-squashed head.
-A particle is dead when its largest weight over the interval is below the
+Counterpart of ``pfpn_tpu/networks/resample.py``. A particle is dead when its largest weight over the interval is below the
 threshold (default 0.05 / N). Each dead slot takes a candidate particle,
 drawn per dimension in proportion to the average weights (``resample < 0``)
 or uniformly from the ``resample`` most active; it receives the candidate's
 mean (jittered by +-std uniform noise, at least 1e-4 in magnitude), log-std
 and logit column, and the candidate's logit bias drops by
-log(count + 1) so that the weight mass is preserved.
+log(count + 1) so that the weight mass is preserved. For a squashed head
+with fixed stds the jitter is added in tanh space and taken back through
+atanh of the value clipped to +-(1 - 1e-6) (``resample.py:84-101``); with
+trainable stds it is added in the particle's own (atanh) space, the JAX
+package's documented deviation from the reference (``resample.py:21-24``).
 
 The random draws (:func:`resample_draws`) are kept apart from the dense
 surgery (:func:`resample_apply`), so a test can feed the JAX package's
@@ -85,7 +88,11 @@ def resample_apply(cfg: ParticleHead, head: ParticleHeadModule, stats: Dict,
         tgt_log_std = torch.clamp(tgt_log_std, -20.0, 2.0)
     noise = torch.exp(tgt_log_std) * u
     noise = noise + torch.where(noise < 0, -1e-4, 1e-4)
-    new_loc = torch.where(invalid, tgt_loc + noise, loc)
+    if cfg.squash and cfg.fixed_sigma:
+        moved = torch.atanh(torch.clamp(torch.tanh(tgt_loc) + noise, 1e-6 - 1.0, 1.0 - 1e-6))
+    else:
+        moved = tgt_loc + noise
+    new_loc = torch.where(invalid, moved, loc)
 
     head.fc_policy.bias.copy_(b2.reshape(d * n))
     head.fc_policy.weight.copy_(w_new.reshape(w.shape))

@@ -7,11 +7,13 @@ Counterpart of ``tools/export_policy.py``:
   ``--particles``, ``--seed``, ``--root``, ``--suffix``) becomes
   ``results/policies/<env>_<setting>_particle<n>_<seed>_step<step>.npz``
   under the working directory, in the JAX package's layout
-  (``:121-141``): the parameters as ``params/...`` in fp16, the
-  observation normalizer as ``norm/...``; the JAX package's ``--play``
-  reads it, as this tool reads the JAX package's files;
-* ``--play NPZ``: deterministic episodes of the npz's policy through
-  ``evaluate`` (``:86-106``); ``--record PATH`` also rolls up to three
+  (``:121-141``): the parameters as ``params/...`` in fp16 (SAC's and
+  DDPG's with ``q1``, ``q2`` and SAC's ``log_alpha``, without the
+  targets), the observation normalizer as ``norm/...``; the JAX package's
+  ``--play`` reads it, as this tool reads the JAX package's files;
+* ``--play NPZ``: deterministic episodes of the npz's policy through its
+  preset's ``evaluate`` (``PPO.evaluate``, or ``SAC.evaluate`` for the SAC
+  and DDPG presets; ``:86-106``); ``--record PATH`` also rolls up to three
   episodes and writes their trajectory npz for ``tools/view_trajectory.py``
   (``:107-119``).
 
@@ -22,6 +24,9 @@ Usage:
       --setting deepmimic_dppo_pfpn --particles 35 --seed 34114 [--root DIR]
   python -m pfpn_torch.tools.export_policy --play results/policies/<file>.npz \\
       --env DeepMimicKick-v0 --setting deepmimic_dppo_pfpn --particles 35 --episodes 10
+  python -m pfpn_torch.tools.export_policy --play \
+      results/policies/DeepMimicWalk-v0_deepmimic_sac_pfpn_particle35_34114_step11138592.npz \
+      --env DeepMimicWalk-v0 --setting deepmimic_sac_pfpn --particles 35 --episodes 10
 """
 
 from __future__ import annotations
@@ -29,12 +34,13 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import os
-from typing import Optional
+from typing import Optional, Union
 
 import numpy as np
 import torch
 
 from ..algos.ppo import PPO
+from ..algos.sac import SAC
 from ..harness.build import build_algo
 from ..harness.checkpoint import CheckpointManager
 from ..harness.eval import rollout_trajectory
@@ -42,7 +48,7 @@ from ..harness.settings import build
 from ..networks.actor_critic import export_jax_params, load_jax_params
 
 
-def load_policy(algo: PPO, path: str) -> None:
+def load_policy(algo: Union[PPO, SAC], path: str) -> None:
     with np.load(path) as z:
         state = load_jax_params({k: z[k] for k in z.files})
     algo.net.load_state_dict(state, strict=True)
@@ -51,7 +57,7 @@ def load_policy(algo: PPO, path: str) -> None:
 def play(path: str, env: str = "DeepMimicWalk-v0",
          setting: str = "deepmimic_dppo_pfpn", particles: int = 35,
          episodes: int = 10, max_steps: int = 600, seed: int = 0,
-         device=None, algo: Optional[PPO] = None,
+         device=None, algo: Optional[Union[PPO, SAC]] = None,
          init_time: Optional[torch.Tensor] = None) -> dict:
     """Deterministic episodes of the npz policy at ``path`` (loaded into
     ``algo`` when none is given), started at phases drawn from a generator
