@@ -45,7 +45,7 @@ Phases, in order; any failure exits non-zero:
    the same step (same start states), and the mean return over the 600
    steps within 5% of the JAX package's 578.53. It runs in a second
    process (``chip_smoke.py --megastep-off-play``) beside phases 14-16
-   and 18-21: all are paced by the host launching small kernels, the card
+   and 18-25: all are paced by the host launching small kernels, the card
    idle most of the time, while the kernel timings run alone;
 11. the ``spd_inverse`` paths at B=8192: ``step_log`` (20
    ``spd_inverse_pair`` launches per env step) and torque-control
@@ -109,10 +109,38 @@ Phases, in order; any failure exits non-zero:
    its returns against ``SAC.evaluate``'s from the same start states (1e-4
    relative), 600 default-variant launches; then the checkpoint exported
    through ``export_policy`` and played back at the npz's fp16 parameters
-   (1e-4 relative).
+   (1e-4 relative);
+22. one round of each A3C and IMPALA preset through the CLI with
+   ``PFPN_MEGASTEP_LINKS=1``: for A3C (A2C) 32 ``emit_links`` launches at
+   B=16, ``global_step`` 1, ``total_samples`` 512; for IMPALA (V-trace) 64
+   at B=32, ``global_step`` 8, ``total_samples`` 2,048; no other kernel;
+   finite losses, every parameter moved, a checkpoint that restores the
+   parameters, normalizer and Adam state; the round split into rollout and
+   update;
+23. the A2C and V-trace (PFPN-35) updates of phase 22's trajectory from
+   the state after its round, each gradient step (A2C's one, V-trace's 8,
+   one per group) on the card and, from the card's state before it, on the
+   CPU: parameters within 1e-6, the normalizer within 1e-6 of max(1,
+   |value|); V-trace's whole update (8 groups in one call) from that state
+   on each device, within 2e-5 of the other device's and of its own chain
+   of one-group calls, ``global_step`` +8 on both; the chained card-vs-CPU
+   gap after each step, beside the CPU's chain from every parameter one
+   ulp up (the rounding witness);
+24. recurrent PPO: ``train(cfg)`` for one round of ``deepmimic_dppo_pfpn``
+   with ``NetworkSettings(lstm=128)``: 512 ``emit_links`` launches at B=8
+   and no other, ``global_step`` 8 (one 512-step stream a minibatch),
+   ``total_samples`` 4,096, finite losses, moved parameters; on the card,
+   ``sequence_outputs`` from the stored first carry reproduces the
+   rollout's log-probs and values within 1e-4; the checkpoint restores the
+   carry with the rest; ``RecurrentPPO.evaluate`` of 3 episodes launches
+   only the default variant;
+25. value normalization: one round of ``deepmimic_a3c_pfpn`` with
+   ``normalize_value=True, clip_value=5.0``: the value normalizer moved,
+   and the critic's raw outputs denormalize to the same values before and
+   after its update (1e-5 relative); 32 ``emit_links`` launches at B=16.
 
 Phases run in the order 1-9, 11-13, then 10 (second process) beside 14,
-18, 15, 19, 20, 16 and 21, then 17.
+18, 15, 19, 20, 22-25, 16 and 21, then 17.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``.
@@ -205,6 +233,7 @@ SAC_PROFILE_STEPS = 16        # gradient steps in phase 19's profiler window
 FP32_PEAK = 67e12      # H100 SXM fp32 outside the tensor cores, FLOP/s
 HBM_RATE = 3.35e12     # H100 SXM device memory, bytes/s
 BIG_B = 8192
+ASYNC_PRESETS = [f"deepmimic_{a}_{k}" for a in ("a3c", "impala") for k in ("pfpn", "gauss", "dis")]
 THREADS = (64, 128, 256)   # the block sizes phase 5 times (one block per env)
 PROFILE_STEPS = 16         # rollout steps in phase 13's profiler window
 
@@ -1250,7 +1279,7 @@ def main():
     print(f"after training: clocks.sm, power.draw, temperature: {clocks}")
 
     # ---- 10. the megastep-off path: play, in a second process ---------------------------
-    # launch-bound on the host like phases 14-16 and 18-21, so they run side
+    # launch-bound on the host like phases 14-16 and 18-25, so they run side
     # by side (the card is idle most of the time in all); kernel timings stay alone
     off_path = os.path.join(work.name, "play_megastep_off.json")
     off_log = open(os.path.join(work.name, "play_megastep_off.log"), "w+")
@@ -1570,6 +1599,383 @@ def main():
         del algo_o, state_o
         torch.cuda.empty_cache()
 
+    # ---- 22. one round of each A3C and IMPALA preset through the CLI --------------------
+    from pfpn_torch.algos.a2c import A2C
+    from pfpn_torch.algos.recurrent import RecurrentPPO
+    from pfpn_torch.algos.vtrace import VTrace
+    from pfpn_torch.harness.train import train
+    from pfpn_torch.networks import value_norm as vnorm_mod
+
+    def wrapped(cls, name, key, keep=None):
+        """``cls.name`` timed into ``timing[key]`` (synchronized); ``keep(self,
+        args, out)`` sees each call."""
+        orig = getattr(cls, name)
+
+        def wrapper(self, *args):
+            torch.cuda.synchronize()
+            t = time.time()
+            out = orig(self, *args)
+            torch.cuda.synchronize()
+            timing[key].append(time.time() - t)
+            if keep is not None:
+                keep(self, args, out)
+            return out
+
+        return mock.patch.object(cls, name, wrapper)
+
+    def keep_traj(self, args, out):
+        last["traj"] = out[1]
+
+    def same_state(a, b):
+        """The same parameters, normalizer (and any other buffer) and Adam state."""
+        same = all(torch.equal(x, y) for x, y in zip(a.net.state_dict().values(),
+                                                     b.net.state_dict().values()))
+        sa, sb = a.opt.state_dict()["state"], b.opt.state_dict()["state"]
+        return same and sa.keys() == sb.keys() and all(
+            torch.equal(sa[i][k].cpu(), sb[i][k].cpu())
+            for i in sa for k in ("step", "exp_avg", "exp_avg_sq"))
+
+    def round_losses(cfg_x, root_x):
+        with open(os.path.join(cfg_x.log_dir(root_x), "metrics.jsonl")) as fh:
+            recs = [json.loads(line) for line in fh]
+        return {k: [r[k] for r in recs if k in r] for k in (
+            "train/loss", "train/policy_loss", "train/value_loss", "train/entropy",
+            "train/episode_reward")}
+
+    def initial_params(cfg_x):
+        """The parameters a run of ``cfg_x`` starts from (init_state's draws)."""
+        with megastep_links_on():
+            a0 = build_algo(cfg_x, dev)
+        p0 = {k: v.detach().clone() for k, v in a0.init_state(
+            torch.Generator(device=dev).manual_seed(seed)).net.named_parameters()}
+        del a0
+        return p0
+
+    async_rounds, kept = {}, {}
+    for setting in ASYNC_PRESETS:
+        a3c = "a3c" in setting
+        cfg_a = build(setting, particles=35, seed=seed)
+        params0 = initial_params(cfg_a)
+        for k in ("rollout_s", "update_s"):
+            timing[k].clear()
+        kernel_calls.clear()
+        linalg.launches = sl.launches = 0
+        with megastep_links_on(), tempfile.TemporaryDirectory() as root_a, \
+                wrapped(PPO, "rollout", "rollout_s", keep_traj), \
+                wrapped(PPO, "update", "update_s"), wrapped(VTrace, "update", "update_s"), \
+                mock.patch.object(ms.Megastep, "kernel", recording_kernel):
+            t0 = time.time()
+            algo_a, state_a = cli.main(
+                ["--env", "DeepMimicWalk-v0", "--setting", setting, "--particles", "35",
+                 "--seed", str(seed), "--train", "--max_rounds", "1", "--root", root_a])
+            torch.cuda.synchronize()
+            wall = time.time() - t0
+            losses_a = round_losses(cfg_a, root_a)
+            ckpt_a = CheckpointManager(cfg_a.checkpoint_dir(root_a))
+            ckpt_steps_a = ckpt_a.steps()
+            fresh = build_algo(cfg_a, dev)
+            restored = ckpt_a.restore_latest(
+                fresh.init_state(torch.Generator(device=dev).manual_seed(1)))
+        c = path_counts(algo_a.env)
+        batches = sorted(set(kernel_calls))
+        rollout_s, update_s = sum(timing["rollout_s"]), sum(timing["update_s"])
+        moved = [k for k, p in algo_a.net.named_parameters()
+                 if torch.equal(p.detach(), params0[k])]
+        row = {"algo": type(algo_a).__name__, "wall_s": wall, "round_s": rollout_s + update_s,
+               "rollout_s": rollout_s, "update_s": update_s,
+               "rollout_ms_per_env_step": rollout_s * 1e3 / algo_a.cfg.unroll_length,
+               "update_ms_per_step": update_s * 1e3 / state_a.global_step,
+               "samples_per_s": state_a.total_samples / (rollout_s + update_s),
+               "launches": c, "kernel_batches": batches, "global_step": state_a.global_step,
+               "total_samples": state_a.total_samples, "losses": losses_a,
+               "checkpoints": ckpt_steps_a}
+        async_rounds[setting] = row
+        print(f"training {setting} ({row['algo']}), 1 round of {algo_a.cfg.num_envs} envs x "
+              f"{algo_a.cfg.unroll_length} steps through the CLI [{card}]: {wall:.1f} s; round "
+              f"{row['round_s']:.2f} s = rollout {rollout_s:.2f} s "
+              f"({row['rollout_ms_per_env_step']:.2f} ms per env step) + update {update_s:.2f} s "
+              f"({state_a.global_step} gradient steps, {row['update_ms_per_step']:.2f} ms each); "
+              f"{row['samples_per_s']:.1f} samples/s; launches {c} at {batches}; global_step "
+              f"{state_a.global_step}, total_samples {state_a.total_samples}; losses "
+              f"{json.dumps(losses_a)}")
+        want_b, want_n = (16, 32) if a3c else (32, 64)
+        want_steps, want_samples = (1, 512) if a3c else (8, 2048)
+        check(c == {"megastep": 0, "megastep_emit_links": want_n, "spd_inverse": 0,
+                    "substep_lin": 0} and batches == [(want_b, True)],
+              f"training {setting}: launches {c} at {batches}, want {want_n} of emit_links at "
+              f"B={want_b} and nothing else")
+        check(state_a.global_step == want_steps and state_a.total_samples == want_samples,
+              f"training {setting}: global_step {state_a.global_step}, total_samples "
+              f"{state_a.total_samples}")
+        check(all(len(v) == 1 and all(math.isfinite(x) for x in v) for v in losses_a.values()),
+              f"training {setting}: losses not finite or not logged: {losses_a}")
+        check(not moved, f"training {setting}: parameters that did not move: {moved}")
+        check(ckpt_steps_a == [want_steps] and restored is not None
+              and same_state(algo_a, fresh),
+              f"training {setting}: checkpoints {ckpt_steps_a}, or the checkpoint does not "
+              "restore the same parameters, normalizer and Adam state")
+        if setting.endswith("_pfpn"):
+            kept[setting] = (cfg_a, algo_a, state_a, last["traj"])
+        del fresh, restored
+
+    # ---- 23. A2C's and V-trace's gradient steps, card against CPU -------------------------
+    # from the state after phase 22's round and its trajectory (A2C's 512
+    # samples are one minibatch, V-trace's groups are fixed, so no shuffle can
+    # differ): each gradient step of the update runs on the card and, from the
+    # card's state before it, on the CPU, one step from an identical state as
+    # in phase 13. V-trace's whole update (its 8 groups in one call) also runs
+    # on each device from the first state, bound by 2e-5 (a fifth of one Adam
+    # step at lr 1e-4, so a group skipped or repeated on either device fails)
+    # and held against each device's chain of one-group calls. Chained, the
+    # devices' rounding differences grow from step to step: the CPU's chain
+    # from the first state with every parameter one ulp up is the witness of
+    # that growth, reported after each step beside the card's (PERF.md)
+    def update_on(cfg_a, algo_a, algo_cfg, d, start, traj):
+        """One ``update`` of ``traj`` on device ``d`` from ``start`` (a state
+        dict, Adam's state, head statistics, step); returns the next start."""
+        sd, opt_sd, stats, gstep = start
+        net_d = build_net(cfg_a, algo_a.env).to(d)
+        net_d.load_state_dict(sd)
+        algo_d = type(algo_a)(None, net_d, algo_cfg)
+        # a copy: load_state_dict keeps tensors already on the device, and
+        # the update writes the Adam moments in place
+        algo_d.opt.load_state_dict(copy.deepcopy(opt_sd))
+        st_d = PPOState(net=net_d, opt=algo_d.opt, env_state=None, obs=None,
+                        head_stats={k: v.to(d) if torch.is_tensor(v) else v
+                                    for k, v in stats.items()},
+                        generator=torch.Generator(device=d).manual_seed(0), global_step=gstep)
+        st_d, _ = algo_d.update(st_d, {k: v.to(d) for k, v in traj.items()})
+        return ({k: v.detach().cpu() for k, v in net_d.state_dict().items()},
+                algo_d.opt.state_dict(), st_d.head_stats, st_d.global_step)
+
+    def state_gap(a, b):
+        """(parameters' max abs err, normalizer's max abs err over max(1, |value|))."""
+        par = max(float((a[k] - b[k]).abs().max()) for k in a if not k.startswith("norm."))
+        nrm = max(float((a[k] - b[k]).abs().max() / b[k].abs().max().clamp(min=1.0))
+                  for k in a if k.startswith("norm."))
+        return par, nrm
+
+    def nudged(start):
+        """``start`` with every parameter one ulp up."""
+        sd = {k: torch.nextafter(v, torch.full_like(v, math.inf)) if k in param_keys else v
+              for k, v in start[0].items()}
+        return (sd,) + start[1:]
+
+    def errs(gaps):
+        return [float(f"{x:.3g}") for x in gaps]
+
+    cpu = torch.device("cpu")
+    card_vs_cpu = {}
+    for setting, (cfg_a, algo_a, state_a, traj) in kept.items():
+        vt = isinstance(algo_a, VTrace)
+        g = algo_a.vcfg.queue_batch if vt else algo_a.cfg.num_envs
+        one = dataclasses.replace(algo_a.vcfg, num_envs=g) if vt else algo_a.cfg
+        param_keys = {k for k, _ in algo_a.net.named_parameters()}
+        first = ({k: v.detach().cpu() for k, v in algo_a.net.state_dict().items()},
+                 algo_a.opt.state_dict(), state_a.head_stats, state_a.global_step)
+        start, cpu_chain, ulp_chain = first, first, nudged(first)
+        steps, chained, ulp = [], [], []
+        for i in range(algo_a.cfg.num_envs // g):
+            sub = {k: v[:, i * g:(i + 1) * g] for k, v in traj.items()}
+            card_next = update_on(cfg_a, algo_a, one, dev, start, sub)
+            cpu_next = update_on(cfg_a, algo_a, one, cpu, start, sub)
+            steps.append(state_gap(card_next[0], cpu_next[0]))
+            if vt:
+                cpu_chain = update_on(cfg_a, algo_a, one, cpu, cpu_chain, sub)
+                ulp_chain = update_on(cfg_a, algo_a, one, cpu, ulp_chain, sub)
+                chained.append(state_gap(card_next[0], cpu_chain[0]))
+                ulp.append(state_gap(ulp_chain[0], cpu_chain[0]))
+            start = card_next
+        row = {"steps": len(steps), "adam_step_first": state_a.global_step + 1,
+               "param_err_per_step": [p for p, _ in steps],
+               "norm_rel_err_per_step": [n for _, n in steps]}
+        par, nrm = max(row["param_err_per_step"]), max(row["norm_rel_err_per_step"])
+        max_err[f"update_step_card_vs_cpu_{setting}"] = {"params": par, "normalizer_rel": nrm}
+        print(f"{type(algo_a).__name__} update of phase 22's trajectory ({traj['reward'].numel()} "
+              f"samples), each of its {len(steps)} gradient steps (from Adam step "
+              f"{state_a.global_step + 1}) from an identical state, card vs CPU [{card}]: "
+              f"parameters max abs err {errs(p for p, _ in steps)}, normalizer "
+              f"(of max(1, |value|)) {errs(n for _, n in steps)}")
+        # a hundredth of a step (lr 1e-4): sums in another order on each device
+        check(par <= 1e-6 and nrm <= 1e-6,
+              f"{setting} gradient steps card vs CPU: parameters {par:.3g}, normalizer "
+              f"{nrm:.3g}, more than 1e-6")
+        if vt:
+            whole_card = update_on(cfg_a, algo_a, algo_a.vcfg, dev, first, traj)
+            whole_cpu = update_on(cfg_a, algo_a, algo_a.vcfg, cpu, first, traj)
+            whole = {"card_vs_cpu": state_gap(whole_card[0], whole_cpu[0]),
+                     "card_vs_card_chain": state_gap(whole_card[0], start[0]),
+                     "cpu_vs_cpu_chain": state_gap(whole_cpu[0], cpu_chain[0])}
+            n_groups = algo_a.cfg.num_envs // g
+            row.update({
+                "chained_param_err_per_step": [p for p, _ in chained],
+                "chained_norm_rel_err_per_step": [n for _, n in chained],
+                "ulp_chain_param_err_per_step": [p for p, _ in ulp],
+                "ulp_chain_norm_rel_err_per_step": [n for _, n in ulp],
+                "whole_update": {k: {"params": p, "normalizer_rel": n}
+                                 for k, (p, n) in whole.items()},
+                "whole_update_global_step": [whole_card[3], whole_cpu[3]]})
+            max_err[f"update_whole_card_vs_cpu_{setting}"] = row["whole_update"]["card_vs_cpu"]
+            print(f"{type(algo_a).__name__} update, each device's one-group calls chained, gap "
+                  f"after each step: card vs CPU: parameters {errs(p for p, _ in chained)}, "
+                  f"normalizer {errs(n for _, n in chained)}; CPU from every parameter one ulp "
+                  f"up vs CPU: parameters {errs(p for p, _ in ulp)}, normalizer "
+                  f"{errs(n for _, n in ulp)}")
+            print(f"{type(algo_a).__name__} whole update ({n_groups} groups in one call) "
+                  f"[{card}]: " + "; ".join(f"{k} parameters {p:.3g}, normalizer {n:.3g}"
+                                             for k, (p, n) in whole.items())
+                  + f"; global_step {whole_card[3]} / {whole_cpu[3]}")
+            # a fifth of one Adam step at lr 1e-4: a group skipped or repeated fails
+            check(all(p <= 2e-5 and n <= 2e-5 for p, n in whole.values())
+                  and whole_card[3] == whole_cpu[3] == first[3] + n_groups,
+                  f"{setting} whole update: {whole}, global_step {whole_card[3]} / "
+                  f"{whole_cpu[3]}, want within 2e-5 and {first[3] + n_groups}")
+        card_vs_cpu[setting] = row
+    del kept, algo_a, state_a, traj
+
+    # ---- 24. recurrent PPO: the LSTM trunk at the DPPO preset ----------------------------
+    cfg_r = build("deepmimic_dppo_pfpn", particles=35, seed=seed)
+    cfg_r = dataclasses.replace(cfg_r, network=dataclasses.replace(cfg_r.network, lstm=128))
+    params0 = initial_params(cfg_r)
+
+    def keep_rollout(self, args, out):
+        last["traj"] = out[1]
+        last["net"] = {k: v.clone() for k, v in self.net.state_dict().items()}
+
+    for k in ("rollout_s", "update_s"):
+        timing[k].clear()
+    kernel_calls.clear()
+    linalg.launches = sl.launches = 0
+    rec_root = os.path.join(work.name, "train_lstm")
+    with megastep_links_on(), wrapped(RecurrentPPO, "rollout", "rollout_s", keep_rollout), \
+            wrapped(RecurrentPPO, "update", "update_s"), \
+            mock.patch.object(ms.Megastep, "kernel", recording_kernel):
+        t0 = time.time()
+        algo_r, state_r = train(cfg_r, root=rec_root, max_rounds=1, device=dev)
+        torch.cuda.synchronize()
+        rec_wall = time.time() - t0
+    rec_counts, rec_batches = path_counts(algo_r.env), sorted(set(kernel_calls))
+    rec_losses = round_losses(cfg_r, rec_root)
+    rollout_s, update_s = sum(timing["rollout_s"]), sum(timing["update_s"])
+    moved = [k for k, p in algo_r.net.named_parameters() if torch.equal(p.detach(), params0[k])]
+    # the update's recomputation from the stored first carry, with the
+    # parameters and normalizer the rollout acted with
+    traj = last["traj"]
+    net_s = build_net(cfg_r, algo_r.env).to(dev)
+    net_s.load_state_dict(last["net"])
+    done = traj["done"]
+    reset = torch.cat([torch.zeros_like(done[:1]), done[:-1]], 0)
+    with torch.no_grad():
+        lp_s, v_s, _ = net_s.sequence_outputs(traj["obs"], traj["action"], traj["carry0"], reset)
+    rec_err = {"log_prob": float((lp_s - traj["log_prob"]).abs().max()),
+               "value": float((v_s - traj["value"]).abs().max())}
+    max_err["recurrent_recompute"] = rec_err
+    ckpt_r = CheckpointManager(cfg_r.checkpoint_dir(rec_root))
+    fresh = build_algo(cfg_r, dev)            # PFPN_MEGASTEP_LINKS off: the default variant
+    restored = ckpt_r.restore_latest(fresh.init_state(torch.Generator(device=dev).manual_seed(1)))
+    same_carry = restored is not None and all(
+        torch.equal(a, b) for a, b in zip(restored.carry, state_r.carry))
+    zero_counts(fresh.env)
+    linalg.launches = sl.launches = 0
+    t0 = time.time()
+    out_r = fresh.evaluate(num_episodes=3, max_steps=600,
+                           generator=torch.Generator(device=dev).manual_seed(seed))
+    torch.cuda.synchronize()
+    rec_eval_s = time.time() - t0
+    rec_eval_counts = path_counts(fresh.env)
+    rec_frames = out_r["frames"].cpu().tolist()
+    recurrent = {"wall_s": rec_wall, "round_s": rollout_s + update_s, "rollout_s": rollout_s,
+                 "update_s": update_s, "rollout_ms_per_env_step": rollout_s * 1e3 / 512,
+                 "update_ms_per_minibatch": update_s * 1e3 / max(state_r.global_step, 1),
+                 "samples_per_s": state_r.total_samples / (rollout_s + update_s),
+                 "launches": rec_counts, "kernel_batches": rec_batches,
+                 "global_step": state_r.global_step, "total_samples": state_r.total_samples,
+                 "losses": rec_losses, "recompute_err": rec_err, "eval_s": rec_eval_s,
+                 "eval_returns": out_r["reward"].cpu().tolist(), "eval_frames": rec_frames,
+                 "eval_launches": rec_eval_counts, "episode_ends": int(done.sum())}
+    print(f"training recurrent PPO (deepmimic_dppo_pfpn, LSTM 128), 1 round of 8 envs x 512 "
+          f"steps through train() [{card}]: {rec_wall:.1f} s; round {recurrent['round_s']:.2f} s "
+          f"= rollout {rollout_s:.2f} s ({recurrent['rollout_ms_per_env_step']:.2f} ms per env "
+          f"step) + update {update_s:.2f} s ({state_r.global_step} minibatches of one 512-step "
+          f"stream, {recurrent['update_ms_per_minibatch']:.1f} ms each); "
+          f"{recurrent['samples_per_s']:.1f} samples/s; launches {rec_counts} at {rec_batches}; "
+          f"global_step {state_r.global_step}, total_samples {state_r.total_samples}; losses "
+          f"{json.dumps(rec_losses)}")
+    print(f"recurrent PPO: the recomputation from the stored first carry against the rollout "
+          f"({int(done.sum())} episode ends): {json.dumps(rec_err)}; evaluation of the "
+          f"restored checkpoint, 3 episodes in {rec_eval_s:.1f} s: returns "
+          f"{[round(x, 2) for x in recurrent['eval_returns']]}, frames {rec_frames}, launches "
+          f"{rec_eval_counts}")
+    check(rec_counts == {"megastep": 0, "megastep_emit_links": 512, "spd_inverse": 0,
+                         "substep_lin": 0} and rec_batches == [(8, True)],
+          f"recurrent training: launches {rec_counts} at {rec_batches}, want 512 of emit_links "
+          "at B=8 and nothing else")
+    check(state_r.global_step == 8 and state_r.total_samples == 4096,
+          f"recurrent training: global_step {state_r.global_step}, total_samples "
+          f"{state_r.total_samples}")
+    check(all(len(v) == 1 and all(math.isfinite(x) for x in v) for v in rec_losses.values()),
+          f"recurrent training: losses not finite or not logged: {rec_losses}")
+    check(not moved, f"recurrent training: parameters that did not move: {moved}")
+    check(max(rec_err.values()) <= 1e-4,
+          f"recurrent training: recomputation from carry0 {rec_err}, more than 1e-4")
+    check(same_carry and same_state(algo_r, fresh),
+          "recurrent training: the checkpoint does not restore the carry, parameters, "
+          "normalizer and Adam state")
+    check(bool(torch.isfinite(out_r["reward"]).all())
+          and rec_eval_counts == {"megastep": max(rec_frames), "megastep_emit_links": 0,
+                                  "spd_inverse": 0, "substep_lin": 0},
+          f"recurrent evaluation: launches {rec_eval_counts} for frames {rec_frames}")
+    del algo_r, state_r, fresh, restored, net_s, traj
+
+    # ---- 25. value normalization on the A3C preset ----------------------------------------
+    cfg_v = build("deepmimic_a3c_pfpn", particles=35, seed=seed)
+    cfg_v = dataclasses.replace(cfg_v, network=dataclasses.replace(
+        cfg_v.network, normalize_value=True, clip_value=5.0))
+
+    def keep_vnorm(self, args, out):
+        last["vnorm"] = (args[0].vnorm, out[0].vnorm)
+
+    for k in ("rollout_s", "update_s"):
+        timing[k].clear()
+    kernel_calls.clear()
+    linalg.launches = sl.launches = 0
+    with megastep_links_on(), tempfile.TemporaryDirectory() as root_v, \
+            wrapped(PPO, "rollout", "rollout_s"), wrapped(PPO, "update", "update_s", keep_vnorm), \
+            mock.patch.object(ms.Megastep, "kernel", recording_kernel):
+        algo_v, state_v = train(cfg_v, root=root_v, max_rounds=1, device=dev)
+        torch.cuda.synchronize()
+        vn_losses = round_losses(cfg_v, root_v)
+    vn_counts, vn_batches = path_counts(algo_v.env), sorted(set(kernel_calls))
+    vn_before, vn_after = last["vnorm"]
+    with torch.no_grad():
+        raw = algo_v.net.raw_value(state_v.obs)      # a fixed raw critic output
+    v_before = vnorm_mod.denormalize(vn_before, raw)
+    v_after = vnorm_mod.denormalize(vn_after, raw)
+    vn_rel = float((v_after - v_before).abs().max() / v_before.abs().max().clamp(min=1.0))
+    max_err["value_norm_invariant"] = vn_rel
+    value_norm = {"launches": vn_counts, "kernel_batches": vn_batches,
+                  "round_s": sum(timing["rollout_s"]) + sum(timing["update_s"]),
+                  "global_step": state_v.global_step, "losses": vn_losses,
+                  "vnorm": {k: float(v) for k, v in vn_after._asdict().items()},
+                  "invariant_rel": vn_rel}
+    print(f"value normalization (deepmimic_a3c_pfpn, normalize_value, clip_value 5), 1 round "
+          f"[{card}]: {value_norm['round_s']:.2f} s; value normalizer after it "
+          f"{json.dumps(value_norm['vnorm'])}; the raw critic outputs of the last observations "
+          f"denormalize before and after its update to within {vn_rel:.3g} (relative); "
+          f"launches {vn_counts} at {vn_batches}; losses {json.dumps(vn_losses)}")
+    check(vn_counts == {"megastep": 0, "megastep_emit_links": 32, "spd_inverse": 0,
+                        "substep_lin": 0} and vn_batches == [(16, True)],
+          f"value normalization: launches {vn_counts} at {vn_batches}")
+    check(state_v.global_step == 1 and all(
+        len(v) == 1 and all(math.isfinite(x) for x in v) for v in vn_losses.values()),
+          f"value normalization: global_step {state_v.global_step}, losses {vn_losses}")
+    check(float(vn_after.mean) != 0.0 and float(vn_after.std) != 1.0,
+          f"value normalization: the normalizer did not move: {value_norm['vnorm']}")
+    check(vn_rel <= 1e-5, f"value normalization: denormalized outputs moved by {vn_rel:.3g} "
+                          "across the update, more than 1e-5")
+    del algo_v, state_v
+    torch.cuda.empty_cache()
+
     # ---- 16. evaluation through the CLI, and the export --------------------------------
     from pfpn_torch.harness import eval as eval_mod
     from pfpn_torch.tools import export_policy
@@ -1705,7 +2111,7 @@ def main():
     ret_off, off_counts, play_off_s = off["return_mean"], off["launches"], off["wall_s"]
     steps_off, mid_rel = off["env_steps"], off["mid_rel"]
     print(f"play, megastep off: 10 deterministic Walk episodes of {PLAY_OFF_STEPS} steps in "
-          f"{play_off_s:.1f} s, in a second process beside phases 14-16 and 18-21 "
+          f"{play_off_s:.1f} s, in a second process beside phases 14-16 and 18-25 "
           f"({side_s:.1f} s): "
           f"return mean {ret_off:.2f} min {off['return_min']:.2f} max {off['return_max']:.2f} "
           f"(JAX {JAX_PLAY_RETURN}); at step {PLAY_CHECK_STEP} mean {off['mid_off']:.2f} against "
@@ -1784,20 +2190,31 @@ def main():
                      + eval_counts["megastep"] + sac_play_counts["megastep"]
                      + sac_train["launches"]["megastep_emit_links"]
                      + sum(r["launches"]["megastep_emit_links"] for r in other_rounds.values())
-                     + sac_eval_counts["megastep"]),
+                     + sac_eval_counts["megastep"]
+                     + sum(r["launches"]["megastep_emit_links"] for r in async_rounds.values())
+                     + recurrent["launches"]["megastep_emit_links"]
+                     + recurrent["eval_launches"]["megastep"]
+                     + value_norm["launches"]["megastep_emit_links"]),
         "launches_by_variant": {
             "default": {"play": launches, "eval_cli": eval_counts["megastep"],
                         **{f"play_{k}": r["launches"]["megastep"]
                            for k, r in task_plays.items()},
                         "play_sac": sac_play_counts["megastep"],
-                        "eval_cli_sac": sac_eval_counts["megastep"]},
+                        "eval_cli_sac": sac_eval_counts["megastep"],
+                        "eval_recurrent_lstm128": recurrent["eval_launches"]["megastep"]},
             "emit_links": {"train": train_counts["megastep_emit_links"],
                            **{f"train_{k}": r["launches"]["megastep_emit_links"]
                               for k, r in new_rounds.items()},
                            "train_deepmimic_sac_pfpn_mult16":
                                sac_train["launches"]["megastep_emit_links"],
                            **{f"train_{k}_mult8": r["launches"]["megastep_emit_links"]
-                              for k, r in other_rounds.items()}}},
+                              for k, r in other_rounds.items()},
+                           **{f"train_{k}": r["launches"]["megastep_emit_links"]
+                              for k, r in async_rounds.items()},
+                           "train_recurrent_lstm128":
+                               recurrent["launches"]["megastep_emit_links"],
+                           "train_deepmimic_a3c_pfpn_normalize_value":
+                               value_norm["launches"]["megastep_emit_links"]}},
         "max_abs_err": max(v for k, v in e1.items() if k != "flags"),
         "max_err": max_err,
         "ms": kernel_ms,
@@ -1834,6 +2251,9 @@ def main():
         "sac_eval_cli": {"s": sac_eval_s, "returns": sac_traj_ret.tolist(),
                          "evaluate": sac_ev_ret.tolist(), "rel": sac_eval_rel,
                          "export_rel": sac_export_rel},
+        "a3c_impala_rounds": async_rounds, "update_steps_card_vs_cpu": card_vs_cpu,
+        "recurrent_lstm128": recurrent,
+        "value_norm": value_norm,
     }, {
         "name": "spd_inverse",
         "route": "cuda",
@@ -1883,7 +2303,7 @@ def main():
         "play_at_check_step": {"step": PLAY_CHECK_STEP, "megastep_off": off["mid_off"],
                                "megastep": off["mid_on"], "largest_rel_gap": mid_rel},
         "play_megastep_off_s": play_off_s,
-        "play_megastep_off_beside": "phases 14-16 and 18-21, in a second process",
+        "play_megastep_off_beside": "phases 14-16 and 18-25, in a second process",
         "megastep_off_substep_split": split,
     }]
     print(f"chip_smoke: {time.time() - run_t0:.1f} s in all, of which the megastep-off "

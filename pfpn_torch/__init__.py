@@ -8,9 +8,12 @@ hand-written CUDA (``csrc/``, built and loaded by ``ops/_build.py``): the
 (``ops/megastep.py``, with its ``emit_links`` variant), and the substep's
 linear algebra (``ops/substep_lin.py``) and the SPD inverse
 (``ops/linalg.py``) of the per-substep path. ``python -m pfpn_torch ...
---train`` trains DPPO (``algos/ppo.py``) or SAC and DDPG/TD3 with a replay
-ring on the card (``algos/sac.py``, ``algos/replay.py``), with the PFPN,
-Gaussian or categorical heads (``harness/``).
+--train`` trains DPPO (``algos/ppo.py``), A3C (``algos/a2c.py``), IMPALA
+(``algos/vtrace.py``), or SAC and DDPG/TD3 with a replay ring on the card
+(``algos/sac.py``, ``algos/replay.py``), with the PFPN, Gaussian or
+categorical heads (``harness/``); recurrent PPO over an LSTM trunk
+(``algos/recurrent.py``) and value normalization
+(``networks/value_norm.py``) through ``harness.train.train``.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``;
 asking for CUDA without a card raises (:func:`resolve_device`).

@@ -24,6 +24,11 @@ Semantics, as in the JAX package:
   critic learning rates agree, a group each otherwise (``ppo.py:88-100``);
 * observation-normalizer updates use the first epoch's minibatches only,
   with the (1 + s) / (10 + s) decay at the new optimizer step;
+* with ``normalize_value``, the critic regresses its scale-and-offset
+  output against the normalized target, and the value normalizer
+  (``networks/value_norm.py``, carried in ``PPOState.vnorm``) moves after
+  every minibatch of every epoch; the rollout's values and bootstraps are
+  denormalized through it;
 * with the particle head, its activation accumulators update on every
   sampling forward pass and resampling runs on the optimizer-step counter;
   the Gaussian and categorical heads carry no statistics.
@@ -38,6 +43,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from ..networks import value_norm as vnorm_mod
 from ..networks.actor_critic import ActorCritic
 from ..networks.heads import update_activation_stats
 from ..networks.resample import maybe_resample
@@ -127,6 +133,10 @@ class PPOState:
     total_samples: int = 0
     ep_return: Optional[torch.Tensor] = None       # (B,) running return
     last_ep_return: Optional[torch.Tensor] = None  # (B,) last finished episode
+    # the value-target normalizer (the identity unless net.cfg.normalize_value)
+    vnorm: Optional[vnorm_mod.ValueNormState] = None
+    # the LSTM's (c, h) per env, RecurrentPPO's only (algos/recurrent.py)
+    carry: Any = None
 
     def replace(self, **kw) -> "PPOState":
         return dataclasses.replace(self, **kw)
@@ -150,7 +160,8 @@ class PPO:
         zeros = torch.zeros(self.cfg.num_envs, device=obs.device)
         return PPOState(net=self.net, opt=self.opt, head_stats=self.net.init_stats(),
                         env_state=env_state, obs=obs, generator=generator,
-                        ep_return=zeros, last_ep_return=zeros.clone())
+                        ep_return=zeros, last_ep_return=zeros.clone(),
+                        vnorm=vnorm_mod.init(obs.device))
 
     # -- rollout ---------------------------------------------------------
     def _clip_action(self, a: torch.Tensor) -> torch.Tensor:
@@ -170,12 +181,12 @@ class PPO:
         ep_ret, last_ret = state.ep_return, state.last_ep_return
         steps: Dict[str, List[torch.Tensor]] = {k: [] for k in TRAJ_KEYS}
         for _ in range(cfg.unroll_length):
-            a, lp, v, aux = net.act(obs, state.generator)
+            a, lp, v, aux = net.act(obs, state.generator, state.vnorm)
             if net.is_pfpn:
                 stats = update_activation_stats(stats, aux["probs"])
             env_state, next_obs, res = env.step_autoreset(
                 env_state, self._clip_action(a), state.generator)
-            v_next = net.value(res.obs)            # the pre-reset observation
+            v_next = net.value(res.obs, state.vnorm)   # the pre-reset observation
             ep_ret = ep_ret + res.reward
             last_ret = torch.where(res.done, ep_ret, last_ret)
             ep_ret = torch.where(res.done, torch.zeros_like(ep_ret), ep_ret)
@@ -191,32 +202,50 @@ class PPO:
         return state, traj
 
     # -- losses ----------------------------------------------------------
-    def _loss(self, batch: Dict[str, torch.Tensor]):
-        """(loss, metrics) of a minibatch (ppo.py:193)."""
-        net, cfg, ncfg = self.net, self.cfg, self.net.cfg
+    def _loss(self, batch: Dict[str, torch.Tensor],
+              vnorm: Optional[vnorm_mod.ValueNormState] = None):
+        """(loss, metrics) of a minibatch (ppo.py:180)."""
+        net, ncfg = self.net, self.net.cfg
         lp = net.log_prob(batch["obs"], batch["action"])
-        ratio = torch.exp(lp - batch["log_prob"])
+        v_target = batch["value"] + batch["advantage"]     # ppo.py:195
+        if ncfg.normalize_value:
+            v = net.normalized_value(batch["obs"], vnorm)
+            v_target = vnorm_mod.normalize_target(vnorm, v_target, clip=ncfg.clip_value)
+        else:
+            v = net.value(batch["obs"])
+        ent = net.entropy(batch["obs"]) if ncfg.entropy_beta else None
+        return self._objective(batch, lp, v, v_target, ent)
+
+    def _objective(self, batch: Dict[str, torch.Tensor], lp: torch.Tensor,
+                   v: torch.Tensor, v_target: torch.Tensor, ent: Optional[torch.Tensor]):
+        """(loss, metrics) from the minibatch's log-probs, values, value
+        targets and, with an entropy bonus, entropies: the advantage
+        normalized and clipped as configured, the policy loss
+        (:meth:`_surrogate`), the squared value error, the bonus."""
+        ncfg = self.net.cfg
         adv = batch["advantage"]
         if ncfg.normalize_advantage:
             adv = (adv - torch.mean(adv)) / (torch.std(adv, correction=0) + 1e-8)
         if ncfg.clip_advantage:
             adv = torch.clamp(adv, -ncfg.clip_advantage, ncfg.clip_advantage)
-        adv = adv.detach()
-        surr = ratio * adv
-        clipped = torch.clamp(ratio, 1.0 - cfg.epsilon, 1.0 + cfg.epsilon) * adv
-        policy_loss = -torch.mean(torch.minimum(surr, clipped))
-
-        v_target = (batch["value"] + batch["advantage"]).detach()
-        value_loss = torch.mean((net.value(batch["obs"]) - v_target) ** 2)
-
+        policy_loss = self._surrogate(lp, batch, adv.detach())
+        value_loss = torch.mean((v - v_target.detach()) ** 2)
         entropy = torch.zeros((), device=lp.device)
         if ncfg.entropy_beta:
-            entropy = torch.mean(net.entropy(batch["obs"]))
+            entropy = torch.mean(ent)
             policy_loss = policy_loss - ncfg.entropy_beta * entropy
         loss = policy_loss + ncfg.value_loss_coef * value_loss
         metrics = {"policy_loss": policy_loss.detach(),
                    "value_loss": value_loss.detach(), "entropy": entropy.detach()}
         return loss, metrics
+
+    def _surrogate(self, lp: torch.Tensor, batch: Dict[str, torch.Tensor],
+                   adv: torch.Tensor) -> torch.Tensor:
+        """The clipped surrogate's policy loss (ppo.py:184-193)."""
+        eps = self.cfg.epsilon
+        ratio = torch.exp(lp - batch["log_prob"])
+        clipped = torch.clamp(ratio, 1.0 - eps, 1.0 + eps) * adv
+        return -torch.mean(torch.minimum(ratio * adv, clipped))
 
     # -- update ----------------------------------------------------------
     def update(self, state: PPOState, traj: Dict[str, torch.Tensor]):
@@ -231,7 +260,7 @@ class PPO:
         flat["advantage"] = adv.reshape(-1)
         n = flat["advantage"].shape[0]
         mb = cfg.minibatch_size
-        gstep, stats = state.global_step, state.head_stats
+        gstep, stats, vnorm = state.global_step, state.head_stats, state.vnorm
         per_mb = []
         for epoch in range(cfg.opt_epochs):
             perm = torch.randperm(n, generator=state.generator, device=adv.device)
@@ -239,10 +268,13 @@ class PPO:
                 idx = perm[i * mb:(i + 1) * mb]
                 batch = {k: v[idx] for k, v in flat.items()}
                 self.opt.zero_grad()
-                loss, metrics = self._loss(batch)
+                loss, metrics = self._loss(batch, vnorm)
                 loss.backward()
                 self.opt.step()
                 gstep += 1
+                if ncfg.normalize_value:
+                    # every minibatch of every epoch (ppo.py:258-265)
+                    vnorm = vnorm_mod.update(vnorm, batch["value"] + batch["advantage"], gstep)
                 if ncfg.normalize_state and epoch == 0:
                     # first epoch only (sync_model.py:103-149)
                     net.norm.update_moving_average(batch["obs"], gstep)
@@ -251,7 +283,7 @@ class PPO:
                 metrics["loss"] = loss.detach()
                 per_mb.append(metrics)
         metrics = {k: torch.stack([m[k] for m in per_mb]).mean() for k in per_mb[0]}
-        return state.replace(head_stats=stats, global_step=gstep), metrics
+        return state.replace(head_stats=stats, vnorm=vnorm, global_step=gstep), metrics
 
     # -- one full round ----------------------------------------------------
     def train_round(self, state: PPOState):
@@ -283,8 +315,9 @@ class PPO:
         ret = torch.zeros(num_episodes, device=obs.device)
         frames = torch.zeros(num_episodes, dtype=torch.int32, device=obs.device)
         done = torch.zeros(num_episodes, dtype=torch.bool, device=obs.device)
+        carry = self._eval_carry(num_episodes)
         for _ in range(max_steps):
-            a = self.net.act_deterministic(obs)
+            a, carry = self._eval_act(obs, carry)
             res = env.step_batch(state, self._clip_action(a))
             ret = ret + torch.where(done, torch.zeros_like(res.reward), res.reward)
             frames = frames + (~done).int()
@@ -293,3 +326,11 @@ class PPO:
             if bool(done.all()):
                 break
         return {"reward": ret, "frames": frames, "finished": done}
+
+    def _eval_carry(self, num_episodes: int):
+        """The policy's state at an episode's start: none here."""
+        return None
+
+    def _eval_act(self, obs: torch.Tensor, carry):
+        """(deterministic action, the policy's next state)."""
+        return self.net.act_deterministic(obs), carry

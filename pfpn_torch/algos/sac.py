@@ -167,6 +167,7 @@ class SAC:
 
     _clip_action = PPO._clip_action
     evaluate = PPO.evaluate
+    _eval_carry, _eval_act = PPO._eval_carry, PPO._eval_act
 
     def __init__(self, env, net: SACNet, cfg: SACConfig = SACConfig()):
         self.env = env

@@ -1,11 +1,15 @@
 """Construct env, network and algorithm from a RunConfig.
 
-Counterpart of ``pfpn_tpu/harness/build.py`` for what the port has: PPO on
-a feed-forward network without value normalization, with any of the three
-heads (the DPPO presets), and SAC and DDPG with the tanh-squashed particle
-or Gaussian head on the env's bounds; the discrete preset's env is wrapped
-in :class:`~pfpn_torch.envs.wrappers.DiscreteActionWrapper`. Other
-algorithms, the LSTM trunk and value normalization raise.
+Counterpart of ``pfpn_tpu/harness/build.py``: PPO, A2C (the A3C presets)
+and V-trace (the IMPALA presets) on the feed-forward actor-critic with any
+of the three heads; with ``NetworkSettings.lstm``, the recurrent
+actor-critic (``networks/recurrent_ac.py``), which ``algo="ppo"`` trains
+with :class:`~pfpn_torch.algos.recurrent.RecurrentPPO`; and SAC and DDPG
+with the tanh-squashed particle or Gaussian head on the env's bounds. The
+discrete presets' env is wrapped in
+:class:`~pfpn_torch.envs.wrappers.DiscreteActionWrapper`. Value
+normalization is accepted only where it is carried (the feed-forward PPO
+and A2C paths), as the JAX package decides (``build.py:95-106``).
 """
 
 from __future__ import annotations
@@ -15,12 +19,16 @@ from typing import Union
 import numpy as np
 
 from .. import resolve_device
+from ..algos.a2c import A2C
 from ..algos.ppo import PPO, PPOConfig
+from ..algos.recurrent import RecurrentPPO
 from ..algos.sac import SAC, SACConfig, SACNet
+from ..algos.vtrace import VTrace, VTraceConfig
 from ..envs.deepmimic import make
 from ..envs.wrappers import DiscreteActionWrapper
 from ..networks.actor_critic import ACConfig, ActorCritic
 from ..networks.heads import CategoricalHead, GaussianHead, HeadConfig, ParticleHead
+from ..networks.recurrent_ac import RecurrentACConfig, RecurrentActorCritic
 from .config import RunConfig
 
 
@@ -55,19 +63,22 @@ def build_head(cfg: RunConfig, env) -> HeadConfig:
 
 
 def build_net(cfg: RunConfig, env) -> ActorCritic:
-    """The preset's network; SAC's and DDPG's with twin critics in place of
-    the value MLP."""
+    """The preset's network (build.py:55): the recurrent one with
+    ``lstm`` (which takes no common trunk and no value normalization, as in
+    the JAX package), SAC's and DDPG's with twin critics in place of the
+    value MLP."""
     n = cfg.network
-    if n.lstm or n.normalize_value or n.clip_value:
-        raise NotImplementedError("the LSTM trunk and value normalization are "
-                                  "not ported yet")
-    ac = ACConfig(
+    shared = dict(
         obs_dim=env.observation_size, head=build_head(cfg, env),
-        common_shape=n.common_shape, actor_shape=n.actor_shape,
-        critic_shape=n.critic_shape, normalize_state=n.normalize_state,
-        clip_state=n.clip_state, value_loss_coef=n.value_loss_coef,
-        entropy_beta=n.entropy_beta, normalize_advantage=n.normalize_advantage,
-        clip_advantage=n.clip_advantage, gamma=n.gamma, lambd=n.lambd)
+        actor_shape=n.actor_shape, critic_shape=n.critic_shape,
+        normalize_state=n.normalize_state, clip_state=n.clip_state,
+        value_loss_coef=n.value_loss_coef, entropy_beta=n.entropy_beta,
+        normalize_advantage=n.normalize_advantage, clip_advantage=n.clip_advantage,
+        gamma=n.gamma, lambd=n.lambd)
+    if n.lstm:
+        return RecurrentActorCritic(RecurrentACConfig(lstm_hidden=n.lstm, **shared))
+    ac = ACConfig(common_shape=n.common_shape, normalize_value=n.normalize_value,
+                  clip_value=n.clip_value, **shared)
     if cfg.algo in ("sac", "ddpg"):
         return SACNet(ac, cfg.algo)
     return ActorCritic(ac)
@@ -75,26 +86,40 @@ def build_net(cfg: RunConfig, env) -> ActorCritic:
 
 def build_algo(cfg: RunConfig, device=None) -> Union[PPO, SAC]:
     """The preset's env, network (on the env's device) and algorithm, with
-    its optimizer."""
-    if cfg.algo not in ("ppo", "sac", "ddpg"):
-        raise NotImplementedError(f"algo {cfg.algo!r} is not ported yet")
-    if cfg.network.normalize_value and cfg.algo != "ppo":
-        # build.py:101-107: only the feed-forward PPO/A2C paths carry it
-        raise ValueError("normalize_value=True is only supported for the feed-forward "
-                         f"ppo/a2c paths, not algo={cfg.algo!r}")
+    its optimizer (build.py:93)."""
+    if cfg.algo not in ("ppo", "a2c", "vtrace", "sac", "ddpg"):
+        raise ValueError(cfg.algo)
     env = build_env(cfg, device)
     net = build_net(cfg, env).to(env.device)
+    # build.py:95-106: value normalization is carried only by the
+    # feed-forward PPO and A2C paths; elsewhere it would be ignored while
+    # clip_value still applied
+    if cfg.network.normalize_value and (
+            cfg.algo not in ("ppo", "a2c") or cfg.network.lstm):
+        raise ValueError(
+            "normalize_value=True is only supported for the feed-forward "
+            f"ppo/a2c paths, not algo={cfg.algo!r}"
+            f"{' with lstm' if cfg.network.lstm else ''}")
+    w = cfg.worker
     if cfg.algo in ("sac", "ddpg"):
         # batch_size stays the preset's 256 under --env_multiplier; the
         # multiplier scales updates_per_step, keeping one gradient step per
         # sample (build.py:151-166)
         return SAC(env, net, SACConfig(
-            algo=cfg.algo, num_envs=cfg.num_envs, batch_size=cfg.worker.batch_size,
-            updates_per_step=cfg.num_envs, buffer_capacity=cfg.worker.buffer_capacity,
-            warmup=cfg.worker.observations, lr_actor=cfg.worker.lr_actor,
-            lr_critic=cfg.worker.lr_critic, norm_clip=cfg.worker.norm_clip))
-    return PPO(env, net, PPOConfig(
-        num_envs=cfg.num_envs, unroll_length=cfg.worker.unroll_length,
-        minibatch_size=cfg.minibatch_size, opt_epochs=cfg.worker.opt_epochs or 1,
-        lr_actor=cfg.worker.lr_actor, lr_critic=cfg.worker.lr_critic,
-        norm_clip=cfg.worker.norm_clip))
+            algo=cfg.algo, num_envs=cfg.num_envs, batch_size=w.batch_size,
+            updates_per_step=cfg.num_envs, buffer_capacity=w.buffer_capacity,
+            warmup=w.observations, lr_actor=w.lr_actor,
+            lr_critic=w.lr_critic, norm_clip=w.norm_clip))
+    if cfg.algo == "vtrace":
+        return VTrace(env, net, VTraceConfig(
+            num_envs=cfg.num_envs, unroll_length=w.unroll_length, queue_batch=w.batch_size,
+            lr_actor=w.lr_actor, lr_critic=w.lr_critic, norm_clip=w.norm_clip))
+    ppo_cfg = PPOConfig(
+        num_envs=cfg.num_envs, unroll_length=w.unroll_length,
+        minibatch_size=cfg.minibatch_size, opt_epochs=w.opt_epochs or 1,
+        lr_actor=w.lr_actor, lr_critic=w.lr_critic, norm_clip=w.norm_clip)
+    if cfg.algo == "a2c":
+        return A2C(env, net, ppo_cfg)
+    if cfg.network.lstm:
+        return RecurrentPPO(env, net, ppo_cfg)
+    return PPO(env, net, ppo_cfg)

@@ -6,9 +6,13 @@ format: one ``<step>.pt`` file per checkpoint in
 every field of the run's state (``PPOState`` or ``SACState``): the
 parameters and normalizer (and SAC's targets), the Adam state, the PFPN
 activation statistics, the env states and observations, the generator's
-state, the counters and the episode returns. The off-policy replay ring is
-not saved (``checkpoint.py:10-28``): a restored run keeps its template's
-fresh, empty ring. Resume is implicit: :meth:`restore_latest` at startup.
+state, the counters and the episode returns, the value normalizer and the
+recurrent net's LSTM carry. The off-policy replay ring is not saved
+(``checkpoint.py:10-28``): a restored run keeps its template's fresh, empty
+ring. A field or entry the file lacks (a checkpoint written before the
+field existed) keeps its template's value, as the JAX package's ``_graft``
+keeps it (``checkpoint.py:60-97``). Resume is implicit:
+:meth:`restore_latest` at startup.
 Only tensors, numbers and containers are stored, so files load with
 ``weights_only=True``. Reading the JAX package's orbax checkpoints is not
 supported.
@@ -30,21 +34,36 @@ _FILE = re.compile(r"^(\d+)\.pt$")
 _SKIP_FIELDS = ("buffer",)     # the replay ring
 
 
+def _is_namedtuple(x: Any) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
 def _to_tree(x: Any) -> Any:
-    """Dataclasses (env and sim states) -> dicts of their fields."""
+    """Dataclasses (env and sim states) and NamedTuples (the value
+    normalizer, the LSTM carry) -> dicts of their fields."""
     if dataclasses.is_dataclass(x):
         return {f.name: _to_tree(getattr(x, f.name)) for f in dataclasses.fields(x)}
+    if _is_namedtuple(x):
+        return {k: _to_tree(v) for k, v in x._asdict().items()}
     return x
 
 
 def _from_tree(template: Any, tree: Any, device) -> Any:
-    """Rebuild ``template``'s structure from ``tree`` with tensors on ``device``."""
-    if dataclasses.is_dataclass(template):
-        return dataclasses.replace(template, **{
-            f.name: _from_tree(getattr(template, f.name), tree[f.name], device)
-            for f in dataclasses.fields(template)})
-    if isinstance(template, dict):
-        return {k: _from_tree(template[k], tree[k], device) for k in template}
+    """Rebuild ``template``'s structure from ``tree`` with tensors on
+    ``device``; what ``tree`` lacks keeps the template's value."""
+    if isinstance(template, dict) or dataclasses.is_dataclass(template) \
+            or _is_namedtuple(template):
+        if not isinstance(tree, dict):
+            return template
+        if isinstance(template, dict):
+            return {k: _from_tree(v, tree.get(k, v), device) for k, v in template.items()}
+        names = ([f.name for f in dataclasses.fields(template)]
+                 if dataclasses.is_dataclass(template) else template._fields)
+        fields = {k: _from_tree(getattr(template, k), tree.get(k, getattr(template, k)), device)
+                  for k in names}
+        if _is_namedtuple(template):
+            return type(template)(**fields)
+        return dataclasses.replace(template, **fields)
     if isinstance(tree, torch.Tensor):
         return tree.to(device)
     return tree
@@ -104,6 +123,8 @@ class CheckpointManager:
         for f in dataclasses.fields(state):
             v = getattr(state, f.name)
             if f.name in _SKIP_FIELDS:
+                continue
+            if f.name not in ck:          # saved before the field existed
                 continue
             if isinstance(v, (nn.Module, ClippedAdam)):
                 v.load_state_dict(ck[f.name])

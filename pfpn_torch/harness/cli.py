@@ -4,9 +4,13 @@
       --setting deepmimic_dppo_pfpn --particles 35 --seed 34114 --train
 
 trains on the CUDA card; ``--device cpu`` trains on the CPU. The settings
-are the JAX package's DPPO presets (``deepmimic_dppo_pfpn``, ``_gauss``,
-``_dis``) and its off-policy ones (``deepmimic_sac_pfpn``, ``_sac_gauss``,
-``_ddpg_pfpn``, ``_ddpg_gauss``). Without
+are all thirteen of the JAX package's: DPPO (``deepmimic_dppo_pfpn``,
+``_gauss``, ``_dis``), A3C (``deepmimic_a3c_pfpn``, ``_gauss``, ``_dis``),
+IMPALA (``deepmimic_impala_pfpn``, ``_gauss``, ``_dis``) and off-policy
+(``deepmimic_sac_pfpn``, ``_sac_gauss``, ``_ddpg_pfpn``, ``_ddpg_gauss``).
+The LSTM trunk and value normalization, which no preset sets, are reached
+through ``harness.train.train(cfg)`` with ``NetworkSettings(lstm=...)`` or
+``normalize_value=True``. Without
 ``--train`` it evaluates the run's latest checkpoint, as the JAX package
 does: three deterministic episodes, their returns printed and their link
 trajectories written to ``<root>/log_<env>/<setting>.../<seed>/trajectory.npz``
