@@ -139,8 +139,37 @@ Phases, in order; any failure exits non-zero:
    and the critic's raw outputs denormalize to the same values before and
    after its update (1e-5 relative); 32 ``emit_links`` launches at B=16.
 
-Phases run in the order 1-9, 11-13, then 10 (second process) beside 14,
-18, 15, 19, 20, 22-25, 16 and 21, then 17.
+26. ``EngineConfig.fast_dynamics`` (``sim/batched.py``): the batched FK, H
+   and C against the recursion at B=8192 and B=1024 from perturbed states
+   (body positions and ``v`` 1e-5, link velocities 1e-4, H 2e-3, C 2e-3
+   of max(1, |C|) per env); ``Engine.substep`` with the flag and the
+   megastep off against the recursion's at B=256 (2e-4 on positions,
+   quaternions and ``q_rev``, 1e-3 on velocities, at most 1% of envs with
+   a contact flag apart), one ``substep_lin`` launch; a torque-control
+   step with the flag, 20 ``spd_inverse`` launches; ``Engine.substep`` at
+   B=8192 and B=1024 with and without the flag, in turns (CUDA events);
+27. the gym adapter (``envs/gym_adapter.py``): truncation at
+   ``overtime=0.05``; the shipped Walk npz played through ``GymEnv`` for
+   100 steps from t = 0.5 s against the batched play from the same start
+   (return within 1e-4 relative), one default-variant launch per step and
+   nothing else;
+28. data-parallel training (``distributed/mesh.py``): one CLI round of
+   ``deepmimic_dppo_pfpn`` in a process group of one rank over NCCL (512
+   ``emit_links`` launches and no other, ``global_step`` 16,
+   ``total_samples`` 4,096, parameters within 1e-6 of the same round
+   without a process group), and an all-reduce of the gradients' size in
+   that group of one (no traffic between cards); where gloo takes CUDA
+   tensors, two gloo ranks on cuda:0 (second and third processes): the
+   DPPO round at 4 envs each against the round without a group within
+   1e-5, the gradient all-reduce timed between the two processes, and an
+   IMPALA round at 16 envs each (replicated V-trace steps); rank 1's
+   parameters equal to rank 0's after both rounds;
+29. ``utils/profiling.py``: ``trace`` around one rollout step at B=8 writes
+   a Chrome trace that holds the ``annotate`` region and the megastep
+   kernel.
+
+Phases run in the order 1-9, 11-13, 26, then 10 (second process) beside
+14, 18, 15, 19, 20, 22-25, 16, 21 and 27-29, then 17.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
 as the last line ``{"ok": true, "device": {...}}``.
@@ -446,6 +475,429 @@ def megastep_off_play(rec_path: str, out_path: str):
                    "mid_off": float(off_mid.mean()), "mid_on": float(on_mid.mean()),
                    "mid_gap": float(gap.max()), "mid_rel": float((gap / on_mid.abs()).max())},
                   fh)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+DP_ARGV = ["--env", "DeepMimicWalk-v0", "--setting", "deepmimic_dppo_pfpn",
+           "--particles", "35", "--seed", "34114", "--train", "--max_rounds", "1"]
+DP_IMPALA_ARGV = ["--env", "DeepMimicWalk-v0", "--setting", "deepmimic_impala_pfpn",
+                  "--particles", "35", "--seed", "34114", "--train", "--max_rounds", "1"]
+DP_ALLREDUCE_REPS = 16   # phase 28: a round's minibatches
+
+
+def phase_fast_dynamics(dev, card, env, perturbed_sim, identity_targets, reset_counts,
+                        counts, in_turns_fn):
+    """Phase 26: ``EngineConfig.fast_dynamics`` on the card. Returns its
+    readings."""
+    import torch
+
+    from pfpn_torch.envs.deepmimic import make
+    from pfpn_torch.math import quaternion as quat
+    from pfpn_torch.sim import batched
+    from pfpn_torch.sim.dynamics import crba, fk, pack_velocity, rnea
+    from pfpn_torch.sim.engine import Engine
+    from pfpn_torch.sim.types import zero_state
+
+    t_phase = time.time()
+    eng, tree = env.engine, env.tree
+    S, NR = tree.n_sph, tree.n_rev
+    pos = ("base_pos", "base_quat", "q_sph", "q_rev")
+    vel = ("base_lin", "base_ang", "w_sph", "w_rev")
+    out = {}
+
+    # compute against the recursion at B=8192 and B=1024, tests/test_batched.py's states
+    g = torch.Generator(device=dev).manual_seed(26)
+
+    def randn(*shape):
+        return torch.randn(*shape, generator=g, device=dev)
+
+    tb = batched.build_tables(tree)
+    tol = {"body_pos": 1e-5, "v": 1e-5, "link_v": 1e-4, "H": 2e-3, "C_rel": 2e-3}
+    for B in (BIG_B, 1024):
+        sim = zero_state(tree, B, device=dev).replace(
+            base_pos=torch.tensor([3.0, 1.2, -2.0], device=dev).expand(B, 3).clone(),
+            base_quat=quat.quat_normalize(randn(B, 4)), base_lin=0.5 * randn(B, 3),
+            base_ang=0.5 * randn(B, 3), q_sph=quat.quat_normalize(randn(B, S, 4)),
+            w_sph=0.5 * randn(B, S, 3),
+            q_rev=torch.tensor([-1.0, 0.5, -1.0, 0.5], device=dev).expand(B, NR).clone(),
+            w_rev=0.5 * randn(B, NR))
+        bd = batched.compute(tree, tb, sim, eng.config.gravity)
+        fkr = fk(tree, sim)
+        c_rec = rnea(tree, fkr, gravity=eng.config.gravity)
+        err = {"body_pos": float((bd.fkr.body_pos - fkr.body_pos).abs().max()),
+               "v": float((bd.v - pack_velocity(tree, sim, fkr)).abs().max()),
+               "link_v": float((bd.fkr.v - fkr.v).abs().max()),
+               "H": float((bd.h - crba(tree, fkr)).abs().max()),
+               "C_rel": float(((bd.c - c_rec).abs().amax(1)
+                               / c_rec.abs().amax(1).clamp(min=1.0)).max())}
+        out[f"compute_vs_recursion_B{B}"] = err
+        print(f"fast_dynamics: batched compute against the recursion, B={B}: "
+              f"{json.dumps(err)}")
+        for k, t in tol.items():
+            check(err[k] <= t, f"fast_dynamics compute, B={B}: {k} error {err[k]:.3g} > {t:g}")
+        del bd, fkr, c_rec, sim
+
+    # one fused substep with the megastep off, with and without the flag
+    e_fast = Engine(tree, dataclasses.replace(eng.config, megastep=False, fast_dynamics=True),
+                    eng.gains)
+    e_rec = Engine(tree, dataclasses.replace(eng.config, megastep=False), eng.gains)
+    sim = perturbed_sim(256, 27)
+    axis = torch.nn.functional.normalize(randn(256, S, 3), dim=-1)
+    half = 0.25 * (torch.rand(256, S, 1, generator=g, device=dev) - 0.5)
+    ts = torch.cat([axis * torch.sin(half), torch.cos(half)], -1)
+    tr = torch.rand(256, NR, generator=g, device=dev) - 0.5
+    reset_counts()
+    got = e_fast.substep(sim, ts, tr)
+    n_sub = counts()
+    want = e_rec.substep(sim, ts, tr)
+    torch.cuda.synchronize()
+    check(n_sub == {"megastep": 0, "megastep_emit_links": 0, "spd_inverse": 0,
+                    "substep_lin": 1},
+          f"fast_dynamics Engine.substep: launches {n_sub}, want one substep_lin")
+    err = {k: float((getattr(got[0], k) - getattr(want[0], k)).abs().max()) for k in pos + vel}
+    err["flag_envs"] = float((got[1] != want[1]).any(1).float().mean())
+    out["substep_vs_recursion_B256"] = err
+    print(f"fast_dynamics: Engine.substep, megastep off, B=256, against the recursion's: "
+          f"{json.dumps(err)}; launches {n_sub}")
+    for k, v in err.items():
+        t = 2e-4 if k in pos else 1e-3 if k in vel else 0.01
+        check(v <= t, f"fast_dynamics Engine.substep: {k} {v:.3g} > {t:g}")
+
+    # torque control with the flag: spd_inverse once a substep
+    env_tq = make("DeepMimicWalk-v0", device=dev, control_mode="torque")
+    env_tq.engine = Engine(tree, dataclasses.replace(env_tq.engine.config, fast_dynamics=True),
+                           env_tq.engine.gains)
+    st, _ = env_tq.reset_batch(256, g)
+    a = torch.rand(256, env_tq.action_size, generator=g, device=dev) * 0.4 - 0.2
+    reset_counts()
+    res = env_tq.step(st, a)
+    n_tq = counts()
+    check(n_tq == {"megastep": 0, "megastep_emit_links": 0,
+                   "spd_inverse": eng.config.frame_skip, "substep_lin": 0},
+          f"fast_dynamics torque step: launches {n_tq}")
+    check(bool(torch.isfinite(res.obs).all()), "fast_dynamics torque step: not finite")
+    out["launches"] = {"substep": n_sub, "torque_step": n_tq}
+
+    # Engine.substep at B=8192 and B=1024, both ways, in turns (CUDA events)
+    for B in (BIG_B, 1024):
+        sim = perturbed_sim(B, 16)
+        ts, tr = identity_targets(B)
+        t = in_turns_fn({"fast_dynamics": lambda: e_fast.substep(sim, ts, tr),
+                         "recursion": lambda: e_rec.substep(sim, ts, tr),
+                         "fast_dynamics_dynamics": lambda: e_fast._dynamics(sim),
+                         "recursion_dynamics": lambda: e_rec._dynamics(sim)},
+                        reps=3, groups=3)
+        out[f"substep_ms_B{B}"] = t
+        print(f"fast_dynamics: megastep-off Engine.substep B={B} [{card}]: "
+              f"{spread_text(t['fast_dynamics'])} with the flag, "
+              f"{spread_text(t['recursion'])} without; of which the dynamics "
+              f"{spread_text(t['fast_dynamics_dynamics'])} and "
+              f"{spread_text(t['recursion_dynamics'])} (in turns)")
+    out["s"] = time.time() - t_phase
+    print(f"fast_dynamics: phase 26 in {out['s']:.1f} s")
+    return out
+
+
+def phase_gym(dev, card, path_counts, zero_counts):
+    """Phase 27: the gym adapter on the card. Returns its readings."""
+    import numpy as np
+    import torch
+
+    from pfpn_torch.envs import GymEnv
+    from pfpn_torch.envs.deepmimic import make
+    from pfpn_torch.harness.build import build_algo
+    from pfpn_torch.harness.settings import build
+    from pfpn_torch.tools.export_policy import load_policy
+
+    t_phase = time.time()
+    genv = GymEnv(make("DeepMimicWalk-v0", device=dev, overtime=0.05,
+                       random_init_pose=False), seed=3)
+    genv.reset()
+    done, info, n_trunc = False, {}, 0
+    while not done and n_trunc < 5:
+        _, _, done, info = genv.step(np.zeros(genv.action_size, np.float32))
+        n_trunc += 1
+    check(done and info["TimeLimit.truncated"] is True,
+          f"GymEnv: no truncation at overtime=0.05 after {n_trunc} steps")
+
+    algo = build_algo(build("deepmimic_dppo_pfpn", particles=35), dev)
+    load_policy(algo, NPZ)
+    genv = GymEnv(algo.env, seed=0)
+    t0 = 0.5                        # seconds into the motion
+    max_steps = 100
+    zero_counts(algo.env)
+    torch.cuda.synchronize()
+    t_play = time.time()
+    obs = genv.reset_at(t0)
+    ret, n = 0.0, 0
+    with torch.no_grad():
+        while n < max_steps:
+            a = algo._clip_action(algo.net.act_deterministic(
+                torch.as_tensor(obs, device=dev)[None]))[0]
+            obs, r, done, info = genv.step(a.cpu().numpy())
+            ret += r
+            n += 1
+            if done:
+                break
+    play_s = time.time() - t_play
+    gym_counts = path_counts(algo.env)
+    zero_counts(algo.env)
+    ref = algo.evaluate(num_episodes=1, max_steps=n,
+                        init_time=torch.tensor([t0], device=dev))
+    ref_ret = float(ref["reward"][0])
+    rel = abs(ret - ref_ret) / max(abs(ref_ret), 1e-9)
+    out = {"steps": n, "return": ret, "batched_return": ref_ret, "rel": rel,
+           "launches": gym_counts, "ms_per_step": play_s * 1e3 / n,
+           "host_copies_per_step": 2, "truncation_steps": n_trunc}
+    print(f"GymEnv: the shipped Walk npz from t={t0} s for {n} steps [{card}]: return "
+          f"{ret:.4f} against the batched play's {ref_ret:.4f} (rel {rel:.2e}); "
+          f"{out['ms_per_step']:.2f} ms per step with two host copies a step (the action "
+          f"in, one copy of obs, reward and flags out); launches {gym_counts}; truncated "
+          f"at overtime=0.05 after {n_trunc} steps")
+    check(rel <= 1e-4, f"GymEnv play: return {ret:.4f} vs {ref_ret:.4f}")
+    check(gym_counts == {"megastep": n, "megastep_emit_links": 0, "spd_inverse": 0,
+                         "substep_lin": 0}, f"GymEnv play: launches {gym_counts} for {n} steps")
+    out["s"] = time.time() - t_phase
+    return out
+
+
+def dp_rank_main(rank: int, port: int, root: str, out_path: str):
+    """Phase 28's gloo ranks on cuda:0, run by ``main`` in two processes:
+    one round of the DPPO preset (the split update, gradients summed), the
+    gradient all-reduce timed between the two processes, then one round of
+    the IMPALA preset (replicated V-trace steps, gradients averaged), all
+    through the CLI. Each rank writes its parameters and readings to
+    ``out_path.rank<R>.pt`` (or why gloo refused CUDA tensors)."""
+    import torch
+    import torch.distributed as dist
+
+    from pfpn_torch.distributed.mesh import init_distributed
+    from pfpn_torch.harness import cli
+
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port), WORLD_SIZE="2",
+                      RANK=str(rank), LOCAL_RANK="0", PFPN_MEGASTEP_LINKS="1")
+    init_distributed("cuda:0", backend="gloo")
+    try:
+        probe = torch.ones(4, device="cuda:0")
+        dist.all_reduce(probe)
+        parts = [torch.empty_like(probe) for _ in range(2)]
+        dist.all_gather(parts, probe)
+        gloo_cuda = {"all_reduce": True, "all_gather": True}
+    except RuntimeError as exc:       # the backend's refusal, reported
+        gloo_cuda = {"error": str(exc)[:300]}
+    out = {"gloo_cuda": gloo_cuda}
+
+    def one_round(argv, sub):
+        t0 = time.time()
+        algo, state = cli.main(argv + ["--root", os.path.join(root, sub),
+                                       "--device", "cuda:0"])
+        torch.cuda.synchronize()
+        eng = algo.env.engine
+        return algo, {"wall_s": time.time() - t0,
+                      "counters": (state.global_step, state.total_samples),
+                      "launches": {"megastep": eng.mega.launches,
+                                   "megastep_emit_links": eng.mega.launches_links},
+                      "net": {k: v.cpu() for k, v in algo.net.state_dict().items()}}
+
+    try:
+        if "error" not in gloo_cuda:
+            algo, out["dppo"] = one_round(DP_ARGV, "dppo")
+            # the all-reduce ClippedAdam.step runs once a minibatch, on a
+            # buffer of every parameter's gradient, between the two processes
+            grads = torch.cat([p.detach().reshape(-1) for p in algo.net.parameters()])
+            for _ in range(3):
+                dist.all_reduce(grads)
+            torch.cuda.synchronize()
+            dist.barrier()
+            t0 = time.perf_counter()
+            for _ in range(DP_ALLREDUCE_REPS):
+                dist.all_reduce(grads)
+            torch.cuda.synchronize()
+            out["allreduce_ms"] = (time.perf_counter() - t0) * 1e3 / DP_ALLREDUCE_REPS
+            out["grad_elements"] = grads.numel()
+            del algo, grads
+            out["impala"] = one_round(DP_IMPALA_ARGV, "impala")[1]
+    finally:
+        dist.destroy_process_group()
+    torch.save(out, f"{out_path}.rank{rank}.pt")
+
+
+def phase_data_parallel(dev, card, work_dir, counts, reset_counts, cuda_ms_fn):
+    """Phase 28: data-parallel training through the CLI under a process
+    group of one rank (NCCL), against a round without a process group, and
+    two gloo ranks on cuda:0 against that round. Returns its readings."""
+    import torch
+    import torch.distributed as dist
+
+    from pfpn_torch.distributed.mesh import init_distributed
+    from pfpn_torch.harness import cli
+
+    t_phase = time.time()
+    port = free_port()
+    gloo_out = os.path.join(work_dir, "dp_gloo_out")
+    gloo_log = open(os.path.join(work_dir, "dp_gloo.log"), "w+")
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dp-rank", str(r), str(port),
+         os.path.join(work_dir, "dp_gloo"), gloo_out],
+        stdout=gloo_log if r == 0 else subprocess.DEVNULL, stderr=subprocess.STDOUT)
+        for r in (0, 1)]
+    for p in procs:
+        atexit.register(lambda p=p: p.poll() is None and p.kill())
+
+    def one_round(root):
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        with megastep_links_on():
+            algo, state = cli.main(DP_ARGV + ["--root", os.path.join(work_dir, root)])
+        torch.cuda.synchronize()
+        eng = algo.env.engine
+        n = counts()
+        n.update(megastep=eng.mega.launches, megastep_emit_links=eng.mega.launches_links)
+        return algo, state, n, time.time() - t0
+
+    # the round without a process group
+    algo_a, state_a, n_a, wall_a = one_round("dp_none")
+    # the same round in a process group of one rank over NCCL
+    env0 = {k: os.environ.get(k) for k in ("MASTER_ADDR", "MASTER_PORT", "WORLD_SIZE",
+                                           "RANK", "LOCAL_RANK")}
+    os.environ.update(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(free_port()), WORLD_SIZE="1",
+                      RANK="0", LOCAL_RANK="0")
+    try:
+        check(init_distributed(), "data parallel: no process group from the variables")
+        backend = dist.get_backend()
+        algo_b, state_b, n_b, wall_b = one_round("dp_nccl")
+        # an all-reduce of a buffer of every parameter's gradient in this
+        # group of one rank, outside the round (which calls none at world
+        # size 1): NCCL's fixed cost on one card, no traffic between cards
+        grads = torch.cat([p.detach().reshape(-1) for p in algo_b.net.parameters()])
+        allreduce_ms = cuda_ms_fn(lambda: dist.all_reduce(grads), warm=3,
+                                  reps=state_b.global_step)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        for k, v in env0.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    sa, sb = algo_a.net.state_dict(), algo_b.net.state_dict()
+    err_b = max(float((sa[k] - sb[k]).abs().max()) for k in sa if sa[k].numel())
+    out = {"backend": backend, "launches": n_b, "launches_no_group": n_a,
+           "counters": (state_b.global_step, state_b.total_samples),
+           "round_s": wall_b, "round_s_no_group": wall_a, "params_err_vs_no_group": err_b,
+           "allreduce_ms_world1_self": allreduce_ms, "grad_elements": grads.numel()}
+    print(f"data parallel: one round of deepmimic_dppo_pfpn through the CLI in a process "
+          f"group of 1 rank ({backend}) [{card}]: {wall_b:.1f} s (without a group "
+          f"{wall_a:.1f} s); launches {n_b}; global_step {state_b.global_step}, "
+          f"total_samples {state_b.total_samples}; parameters against the round without a "
+          f"group: max abs err {err_b:.3g}; an all-reduce of {grads.numel()} fp32 in the "
+          f"group of one rank, outside the round (no traffic between cards) "
+          f"{allreduce_ms:.4f} ms")
+    check(n_b == {"megastep": 0, "megastep_emit_links": 512, "spd_inverse": 0,
+                  "substep_lin": 0}, f"data parallel: launches {n_b}")
+    check((state_b.global_step, state_b.total_samples) == (16, 4096),
+          f"data parallel: global_step {state_b.global_step}, total_samples "
+          f"{state_b.total_samples}")
+    check(err_b <= 1e-6, f"data parallel: parameters {err_b:.3g} from the round without "
+          f"a process group")
+
+    # two gloo ranks on cuda:0: 4 DPPO envs each, then 16 IMPALA envs each
+    rcs = [p.wait(timeout=900) for p in procs]
+    gloo_log.seek(0)
+    log = gloo_log.read()
+    gloo_log.close()
+    check(rcs == [0, 0], f"data parallel, gloo ranks: exit codes {rcs}\n{log[-3000:]}")
+    g, g1 = (torch.load(f"{gloo_out}.rank{r}.pt") for r in (0, 1))
+    out["gloo_cuda"] = g["gloo_cuda"]
+    if "error" in g["gloo_cuda"]:
+        print(f"data parallel: gloo refused CUDA tensors, so the two-rank run on cuda:0 did "
+              f"not run: {g['gloo_cuda']['error']}")
+    else:
+        d = g["dppo"]
+        err_g = max(float((sa[k].cpu() - d["net"][k]).abs().max()) for k in sa if sa[k].numel())
+        # the replicas: rank 1 against rank 0, equal by construction
+        rep = {run: max(float((g[run]["net"][k] - g1[run]["net"][k]).abs().max())
+                        for k in g[run]["net"] if g[run]["net"][k].numel())
+               for run in ("dppo", "impala")}
+        imp = g["impala"]
+        out.update(gloo_params_err_vs_no_group=err_g, gloo_round_s=d["wall_s"],
+                   gloo_launches_rank0=d["launches"], gloo_counters=d["counters"],
+                   gloo_allreduce_ms_two_ranks=g["allreduce_ms"],
+                   gloo_rank1_vs_rank0=rep, gloo_impala_round_s=imp["wall_s"],
+                   gloo_impala_counters=imp["counters"],
+                   gloo_impala_launches_rank0=imp["launches"])
+        print(f"data parallel: two gloo ranks on cuda:0, 4 envs each [{card}]: round "
+              f"{d['wall_s']:.1f} s, rank 0 launches {d['launches']}, counters "
+              f"{d['counters']}; parameters against the one-process round: max abs err "
+              f"{err_g:.3g}; the all-reduce of the {g['grad_elements']} fp32 gradients "
+              f"between the two processes (gloo, through host memory) "
+              f"{g['allreduce_ms']:.3f} ms")
+        print(f"data parallel: IMPALA on the two gloo ranks, 16 envs each [{card}]: round "
+              f"{imp['wall_s']:.1f} s, rank 0 launches {imp['launches']}, counters "
+              f"{imp['counters']}; rank 1's parameters against rank 0's: max abs diff "
+              f"DPPO {rep['dppo']:.3g}, IMPALA {rep['impala']:.3g}")
+        check(tuple(d["counters"]) == (16, 4096), f"gloo ranks: counters {d['counters']}")
+        check(d["launches"] == {"megastep": 0, "megastep_emit_links": 512},
+              f"gloo ranks: rank 0 launches {d['launches']}")
+        check(err_g <= 1e-5, f"gloo ranks: parameters {err_g:.3g} from the one-process round")
+        check(tuple(imp["counters"]) == (8, 2048) and tuple(g1["impala"]["counters"]) == (8, 2048),
+              f"gloo ranks, IMPALA: counters {imp['counters']}, {g1['impala']['counters']}")
+        check(imp["launches"] == {"megastep": 0, "megastep_emit_links": 64},
+              f"gloo ranks, IMPALA: rank 0 launches {imp['launches']}")
+        check(rep == {"dppo": 0.0, "impala": 0.0},
+              f"gloo ranks: rank 1's parameters differ from rank 0's: {rep}")
+    out["s"] = time.time() - t_phase
+    return out
+
+
+def phase_profiling(dev, card, work_dir):
+    """Phase 29: ``trace`` around one rollout step of the DPPO preset (B=8,
+    the emit_links variant) writes a Chrome trace with the ``annotate``
+    region and the megastep kernel. Returns its readings."""
+    import torch
+
+    from pfpn_torch.algos.ppo import PPO
+    from pfpn_torch.harness.build import build_algo
+    from pfpn_torch.harness.settings import build
+    from pfpn_torch.utils.profiling import annotate, trace
+
+    cfg = build("deepmimic_dppo_pfpn", particles=35, seed=29)
+    with megastep_links_on():
+        algo = build_algo(cfg, dev)
+    state = algo.init_state(torch.Generator(device=dev).manual_seed(29))
+    one = PPO(algo.env, algo.net, dataclasses.replace(algo.cfg, unroll_length=1))
+    state = one.rollout(state)[0]                 # warm-up
+    torch.cuda.synchronize()
+    logdir = os.path.join(work_dir, "trace")
+    mega = algo.env.engine.mega
+    mega.launches = mega.launches_links = 0
+    with trace(logdir):
+        with annotate("rollout_step"):
+            one.rollout(state)
+    with open(os.path.join(logdir, "trace.json")) as fh:
+        events = json.load(fh)["traceEvents"]
+    names = [e.get("name", "") for e in events]
+    kernels = [e.get("name", "") for e in events if e.get("cat") == "kernel"]
+    out = {"events": len(events), "annotate_region": "rollout_step" in names,
+           "kernel_events": len(kernels),
+           "megastep_kernel": any("megastep" in k for k in kernels),
+           "launches": {"megastep_emit_links": mega.launches_links, "megastep": mega.launches},
+           "trace_bytes": os.path.getsize(os.path.join(logdir, "trace.json"))}
+    print(f"profiling: trace() around one rollout step at B=8 [{card}]: {json.dumps(out)}")
+    check(out["annotate_region"], "profiling: the trace holds no 'rollout_step' region")
+    check(out["launches"] == {"megastep_emit_links": 1, "megastep": 0},
+          f"profiling: launches {out['launches']}")
+    check(out["megastep_kernel"], f"profiling: the trace's {len(kernels)} device kernels "
+          f"hold no megastep")
+    return out
 
 
 def main():
@@ -1278,8 +1730,12 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True).stdout.strip()
     print(f"after training: clocks.sm, power.draw, temperature: {clocks}")
 
+    # ---- 26. fast_dynamics on the card -----------------------------------------------
+    fast_dyn = phase_fast_dynamics(dev, card, env, perturbed_sim, identity_targets,
+                                   reset_counts, counts, in_turns)
+
     # ---- 10. the megastep-off path: play, in a second process ---------------------------
-    # launch-bound on the host like phases 14-16 and 18-25, so they run side
+    # launch-bound on the host like phases 14-16, 18-25 and 27-29, so they run side
     # by side (the card is idle most of the time in all); kernel timings stay alone
     off_path = os.path.join(work.name, "play_megastep_off.json")
     off_log = open(os.path.join(work.name, "play_megastep_off.log"), "w+")
@@ -2099,6 +2555,15 @@ def main():
                                   "checkpoint's play")
     del algo_c, algo_x, eval_algos
 
+    # ---- 27. the gym adapter on the card -------------------------------------------------
+    gym = phase_gym(dev, card, path_counts, zero_counts)
+
+    # ---- 28. data-parallel training --------------------------------------------------------
+    data_parallel = phase_data_parallel(dev, card, work.name, counts, reset_counts, cuda_ms)
+
+    # ---- 29. profiling ----------------------------------------------------------------------
+    profiling = phase_profiling(dev, card, work.name)
+
     # ---- 10, joined ----------------------------------------------------------------------
     side_s = time.time() - t_side
     off_rc = off_proc.wait(timeout=1500)
@@ -2111,7 +2576,7 @@ def main():
     ret_off, off_counts, play_off_s = off["return_mean"], off["launches"], off["wall_s"]
     steps_off, mid_rel = off["env_steps"], off["mid_rel"]
     print(f"play, megastep off: 10 deterministic Walk episodes of {PLAY_OFF_STEPS} steps in "
-          f"{play_off_s:.1f} s, in a second process beside phases 14-16 and 18-25 "
+          f"{play_off_s:.1f} s, in a second process beside phases 14-16, 18-25 and 27-29 "
           f"({side_s:.1f} s): "
           f"return mean {ret_off:.2f} min {off['return_min']:.2f} max {off['return_max']:.2f} "
           f"(JAX {JAX_PLAY_RETURN}); at step {PLAY_CHECK_STEP} mean {off['mid_off']:.2f} against "
@@ -2194,14 +2659,18 @@ def main():
                      + sum(r["launches"]["megastep_emit_links"] for r in async_rounds.values())
                      + recurrent["launches"]["megastep_emit_links"]
                      + recurrent["eval_launches"]["megastep"]
-                     + value_norm["launches"]["megastep_emit_links"]),
+                     + value_norm["launches"]["megastep_emit_links"]
+                     + gym["launches"]["megastep"]
+                     + data_parallel["launches"]["megastep_emit_links"]
+                     + profiling["launches"]["megastep_emit_links"]),
         "launches_by_variant": {
             "default": {"play": launches, "eval_cli": eval_counts["megastep"],
                         **{f"play_{k}": r["launches"]["megastep"]
                            for k, r in task_plays.items()},
                         "play_sac": sac_play_counts["megastep"],
                         "eval_cli_sac": sac_eval_counts["megastep"],
-                        "eval_recurrent_lstm128": recurrent["eval_launches"]["megastep"]},
+                        "eval_recurrent_lstm128": recurrent["eval_launches"]["megastep"],
+                        "gym_adapter_play": gym["launches"]["megastep"]},
             "emit_links": {"train": train_counts["megastep_emit_links"],
                            **{f"train_{k}": r["launches"]["megastep_emit_links"]
                               for k, r in new_rounds.items()},
@@ -2214,7 +2683,11 @@ def main():
                            "train_recurrent_lstm128":
                                recurrent["launches"]["megastep_emit_links"],
                            "train_deepmimic_a3c_pfpn_normalize_value":
-                               value_norm["launches"]["megastep_emit_links"]}},
+                               value_norm["launches"]["megastep_emit_links"],
+                           "train_data_parallel_nccl_world1":
+                               data_parallel["launches"]["megastep_emit_links"],
+                           "profiling_rollout_step":
+                               profiling["launches"]["megastep_emit_links"]}},
         "max_abs_err": max(v for k, v in e1.items() if k != "flags"),
         "max_err": max_err,
         "ms": kernel_ms,
@@ -2254,15 +2727,21 @@ def main():
         "a3c_impala_rounds": async_rounds, "update_steps_card_vs_cpu": card_vs_cpu,
         "recurrent_lstm128": recurrent,
         "value_norm": value_norm,
+        "gym_adapter": gym,
+        "data_parallel": data_parallel,
+        "profiling": profiling,
     }, {
         "name": "spd_inverse",
         "route": "cuda",
         "source": "pfpn_torch/csrc/spd_inverse.cu",
         "replaces": "pfpn_tpu/ops/linalg.py:32",
         "tpu_kernel": "pfpn_tpu/ops/linalg.py:_spd_inverse_kernel",
-        "launches": log_counts["spd_inverse"] + tq_counts["spd_inverse"],
+        "launches": (log_counts["spd_inverse"] + tq_counts["spd_inverse"]
+                     + fast_dyn["launches"]["torque_step"]["spd_inverse"]),
         "launches_by_path": {"step_log": log_counts["spd_inverse"],
-                             "torque_step_autoreset": tq_counts["spd_inverse"]},
+                             "torque_step_autoreset": tq_counts["spd_inverse"],
+                             "torque_step_fast_dynamics":
+                                 fast_dyn["launches"]["torque_step"]["spd_inverse"]},
         "max_abs_err": spd_abs,
         "ms": spd_ms,
         "plain_ms": spd_plain_ms,
@@ -2286,7 +2765,10 @@ def main():
         "source": "pfpn_torch/csrc/substep_lin.cu",
         "replaces": "pfpn_tpu/ops/substep_lin.py:136",
         "tpu_kernel": "pfpn_tpu/ops/substep_lin.py:_make_kernel",
-        "launches": off_counts["substep_lin"],
+        "launches": off_counts["substep_lin"] + fast_dyn["launches"]["substep"]["substep_lin"],
+        "launches_by_path": {"play_megastep_off": off_counts["substep_lin"],
+                             "substep_fast_dynamics":
+                                 fast_dyn["launches"]["substep"]["substep_lin"]},
         "max_abs_err": core_abs,
         "ms": core_ms,
         "plain_ms": core_plain_ms,
@@ -2303,8 +2785,9 @@ def main():
         "play_at_check_step": {"step": PLAY_CHECK_STEP, "megastep_off": off["mid_off"],
                                "megastep": off["mid_on"], "largest_rel_gap": mid_rel},
         "play_megastep_off_s": play_off_s,
-        "play_megastep_off_beside": "phases 14-16 and 18-25, in a second process",
+        "play_megastep_off_beside": "phases 14-16, 18-25 and 27-29, in a second process",
         "megastep_off_substep_split": split,
+        "fast_dynamics": fast_dyn,
     }]
     print(f"chip_smoke: {time.time() - run_t0:.1f} s in all, of which the megastep-off "
           f"play {play_off_s:.1f} s")
@@ -2318,5 +2801,7 @@ if __name__ == "__main__":
     os.chdir(os.path.dirname(os.path.abspath(__file__)))
     if sys.argv[1:2] == ["--megastep-off-play"]:
         megastep_off_play(*sys.argv[2:4])
+    elif sys.argv[1:2] == ["--dp-rank"]:
+        dp_rank_main(int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:6])
     else:
         main()

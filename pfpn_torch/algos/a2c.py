@@ -28,4 +28,4 @@ class A2C(PPO):
 
     def _surrogate(self, lp: torch.Tensor, batch: Dict[str, torch.Tensor],
                    adv: torch.Tensor) -> torch.Tensor:
-        return -torch.mean(lp * adv)
+        return -self._mean(lp * adv)

@@ -34,6 +34,13 @@ Semantics, as in the JAX package:
   the Gaussian and categorical heads carry no statistics.
 
 Counters (``global_step``, ``total_samples``) are Python ints.
+
+Data parallel (:meth:`PPO.shard`, ``distributed/mesh.py``): each rank steps
+its slice of the envs and the policy acts on the all-gathered batch, so the
+trajectory is global on every rank; each minibatch is split by rank, each
+rank's loss is its rows' share of the global mean (the advantage still
+normalized over the whole minibatch), and the optimizer sums the gradients
+over the ranks before the clip.
 """
 
 from __future__ import annotations
@@ -43,6 +50,7 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
+from ..distributed import mesh as mesh_mod
 from ..networks import value_norm as vnorm_mod
 from ..networks.actor_critic import ActorCritic
 from ..networks.heads import update_activation_stats
@@ -84,6 +92,11 @@ class ClippedAdam:
                  lrs: Sequence[float], max_norm: Optional[float]):
         self.groups = [list(g) for g in groups]
         self.max_norm = max_norm
+        # set on a rank of a data-parallel run: the gradients are summed over
+        # the ranks before the clip where each rank's loss is its share of a
+        # split minibatch, averaged where every rank computes the whole step
+        self.mesh: Optional[mesh_mod.DataMesh] = None
+        self.average = False
         self.adam = torch.optim.Adam(
             [{"params": g, "lr": lr} for g, lr in zip(self.groups, lrs)],
             betas=(0.9, 0.999), eps=1e-8)
@@ -93,6 +106,9 @@ class ClippedAdam:
 
     @torch.no_grad()
     def step(self) -> None:
+        if self.mesh is not None:
+            self.mesh.all_reduce_([p.grad for g in self.groups for p in g
+                                   if p.grad is not None], average=self.average)
         if self.max_norm:
             for group in self.groups:
                 clip_by_global_norm_([p.grad for p in group if p.grad is not None],
@@ -145,11 +161,34 @@ class PPOState:
 class PPO:
     """Binds (env, ActorCritic, PPOConfig) and the optimizer."""
 
+    # whether a sharded run splits each minibatch's gradient over the ranks
+    # (else every rank computes the whole update)
+    SPLIT_UPDATE = True
+
     def __init__(self, env, net: ActorCritic, cfg: PPOConfig = PPOConfig()):
         self.env = env
         self.net = net
         self.cfg = cfg
         self.opt = make_optimizer(cfg, net)
+        self.mesh: Optional[mesh_mod.DataMesh] = None    # set by shard()
+        self.split: Optional[mesh_mod.DataMesh] = None   # the split update's
+
+    def shard(self, mesh: mesh_mod.DataMesh) -> None:
+        """Make this algorithm one rank of a data-parallel run: its env
+        steps the rank's slice of the batch; with :attr:`SPLIT_UPDATE` the
+        minibatches are split too (the gradients summed over the ranks),
+        else every rank computes the whole update (the gradients averaged)."""
+        mesh_mod.check_divisible(self.cfg.num_envs, mesh.world)
+        self.env = mesh_mod.ShardedEnv(self.env, mesh)
+        self.mesh = self.opt.mesh = mesh
+        if self.SPLIT_UPDATE:
+            if self.cfg.minibatch_size % mesh.world:
+                raise ValueError(
+                    f"minibatch_size={self.cfg.minibatch_size} is not divisible "
+                    f"by the world size {mesh.world}")
+            self.split = mesh
+        else:
+            self.opt.average = True
 
     # -- init ------------------------------------------------------------
     def init_state(self, generator: torch.Generator) -> PPOState:
@@ -177,8 +216,9 @@ class PPO:
         """``unroll_length`` sampled steps of every env (ppo.py:142):
         returns the state after them and the time-major trajectory."""
         net, env, cfg = self.net, self.env, self.cfg
-        env_state, obs, stats = state.env_state, state.obs, state.head_stats
-        ep_ret, last_ret = state.ep_return, state.last_ep_return
+        env_state, stats = state.env_state, state.head_stats
+        obs, ep_ret, last_ret = mesh_mod.to_global(
+            self.mesh, state.obs, state.ep_return, state.last_ep_return)
         steps: Dict[str, List[torch.Tensor]] = {k: [] for k in TRAJ_KEYS}
         for _ in range(cfg.unroll_length):
             a, lp, v, aux = net.act(obs, state.generator, state.vnorm)
@@ -195,6 +235,7 @@ class PPO:
                 steps[k].append(x)
             obs = next_obs
         traj = {k: torch.stack(v) for k, v in steps.items()}
+        obs, ep_ret, last_ret = mesh_mod.to_local(self.mesh, obs, ep_ret, last_ret)
         state = state.replace(
             env_state=env_state, obs=obs, head_stats=stats, ep_return=ep_ret,
             last_ep_return=last_ret,
@@ -204,35 +245,52 @@ class PPO:
     # -- losses ----------------------------------------------------------
     def _loss(self, batch: Dict[str, torch.Tensor],
               vnorm: Optional[vnorm_mod.ValueNormState] = None):
-        """(loss, metrics) of a minibatch (ppo.py:180)."""
+        """(loss, metrics) of a minibatch (ppo.py:180); in a split update,
+        this rank's share of them."""
         net, ncfg = self.net, self.net.cfg
-        lp = net.log_prob(batch["obs"], batch["action"])
-        v_target = batch["value"] + batch["advantage"]     # ppo.py:195
+        part = batch if self.split is None else {
+            k: self.split.local(v) for k, v in batch.items()}
+        lp = net.log_prob(part["obs"], part["action"])
+        v_target = part["value"] + part["advantage"]     # ppo.py:195
         if ncfg.normalize_value:
-            v = net.normalized_value(batch["obs"], vnorm)
+            v = net.normalized_value(part["obs"], vnorm)
             v_target = vnorm_mod.normalize_target(vnorm, v_target, clip=ncfg.clip_value)
         else:
-            v = net.value(batch["obs"])
-        ent = net.entropy(batch["obs"]) if ncfg.entropy_beta else None
-        return self._objective(batch, lp, v, v_target, ent)
+            v = net.value(part["obs"])
+        ent = net.entropy(part["obs"]) if ncfg.entropy_beta else None
+        return self._objective(batch, lp, v, v_target, ent, part)
+
+    def _mean(self, x: torch.Tensor) -> torch.Tensor:
+        """The minibatch mean; in a split update, this rank's rows' share
+        of it."""
+        if self.split is None:
+            return torch.mean(x)
+        return torch.sum(x) / (x.numel() * self.split.world)
 
     def _objective(self, batch: Dict[str, torch.Tensor], lp: torch.Tensor,
-                   v: torch.Tensor, v_target: torch.Tensor, ent: Optional[torch.Tensor]):
-        """(loss, metrics) from the minibatch's log-probs, values, value
-        targets and, with an entropy bonus, entropies: the advantage
-        normalized and clipped as configured, the policy loss
-        (:meth:`_surrogate`), the squared value error, the bonus."""
+                   v: torch.Tensor, v_target: torch.Tensor, ent: Optional[torch.Tensor],
+                   part: Optional[Dict[str, torch.Tensor]] = None):
+        """(loss, metrics) from the log-probs, values, value targets and,
+        with an entropy bonus, entropies of ``part``, the rows of
+        ``batch`` this rank computes (all of them by default): the
+        advantage normalized over the whole minibatch and clipped as
+        configured, the policy loss (:meth:`_surrogate`), the squared value
+        error, the bonus."""
         ncfg = self.net.cfg
         adv = batch["advantage"]
         if ncfg.normalize_advantage:
             adv = (adv - torch.mean(adv)) / (torch.std(adv, correction=0) + 1e-8)
         if ncfg.clip_advantage:
             adv = torch.clamp(adv, -ncfg.clip_advantage, ncfg.clip_advantage)
-        policy_loss = self._surrogate(lp, batch, adv.detach())
-        value_loss = torch.mean((v - v_target.detach()) ** 2)
+        if part is None:
+            part = batch
+        elif self.split is not None:
+            adv = self.split.local(adv)
+        policy_loss = self._surrogate(lp, part, adv.detach())
+        value_loss = self._mean((v - v_target.detach()) ** 2)
         entropy = torch.zeros((), device=lp.device)
         if ncfg.entropy_beta:
-            entropy = torch.mean(ent)
+            entropy = self._mean(ent)
             policy_loss = policy_loss - ncfg.entropy_beta * entropy
         loss = policy_loss + ncfg.value_loss_coef * value_loss
         metrics = {"policy_loss": policy_loss.detach(),
@@ -245,7 +303,7 @@ class PPO:
         eps = self.cfg.epsilon
         ratio = torch.exp(lp - batch["log_prob"])
         clipped = torch.clamp(ratio, 1.0 - eps, 1.0 + eps) * adv
-        return -torch.mean(torch.minimum(ratio * adv, clipped))
+        return -self._mean(torch.minimum(ratio * adv, clipped))
 
     # -- update ----------------------------------------------------------
     def update(self, state: PPOState, traj: Dict[str, torch.Tensor]):
@@ -282,7 +340,10 @@ class PPO:
                     stats = maybe_resample(ncfg.head, net.head, stats, state.generator)
                 metrics["loss"] = loss.detach()
                 per_mb.append(metrics)
-        metrics = {k: torch.stack([m[k] for m in per_mb]).mean() for k in per_mb[0]}
+        metrics = {k: torch.stack([m[k] for m in per_mb]) for k in per_mb[0]}
+        if self.split is not None:
+            self.split.all_reduce_(list(metrics.values()))   # the ranks' shares
+        metrics = {k: v.mean() for k, v in metrics.items()}
         return state.replace(head_stats=stats, vnorm=vnorm, global_step=gstep), metrics
 
     # -- one full round ----------------------------------------------------
@@ -291,7 +352,8 @@ class PPO:
         counters stay ints."""
         state, traj = self.rollout(state)
         state, metrics = self.update(state, traj)
-        metrics["episode_reward"] = torch.mean(state.last_ep_return)
+        metrics["episode_reward"] = torch.mean(
+            mesh_mod.to_global(self.mesh, state.last_ep_return)[0])
         out: Dict[str, Any] = {k: float(v) for k, v in metrics.items()}
         out["total_samples"] = state.total_samples
         out["global_step"] = state.global_step

@@ -25,6 +25,7 @@ from typing import Any, Dict, List
 
 import torch
 
+from ..distributed import mesh as mesh_mod
 from ..networks.heads import update_activation_stats
 from ..networks.recurrent import LSTMState
 from ..networks.recurrent_ac import RecurrentActorCritic
@@ -35,7 +36,10 @@ from .ppo import PPO, PPOConfig, PPOState, TRAJ_KEYS
 
 class RecurrentPPO(PPO):
     """A minibatch is ``seq_batch = max(1, minibatch_size // unroll_length)``
-    whole env streams; set ``minibatch_size`` for another grouping."""
+    whole env streams; set ``minibatch_size`` for another grouping. A
+    sharded run computes the whole update on every rank."""
+
+    SPLIT_UPDATE = False
 
     def __init__(self, env, net: RecurrentActorCritic, cfg: PPOConfig = PPOConfig()):
         if not isinstance(net, RecurrentActorCritic):
@@ -53,8 +57,10 @@ class RecurrentPPO(PPO):
     def rollout(self, state: PPOState):
         """PPO's rollout with the carry threaded through (recurrent.py:55)."""
         net, env, cfg = self.net, self.env, self.cfg
-        env_state, obs, stats = state.env_state, state.obs, state.head_stats
-        ep_ret, last_ret, carry = state.ep_return, state.last_ep_return, state.carry
+        env_state, stats = state.env_state, state.head_stats
+        obs, ep_ret, last_ret, carry0 = mesh_mod.to_global(
+            self.mesh, state.obs, state.ep_return, state.last_ep_return, state.carry)
+        carry = carry0
         steps: Dict[str, List[torch.Tensor]] = {k: [] for k in TRAJ_KEYS}
         for _ in range(cfg.unroll_length):
             a, lp, v, aux, carry = net.act(obs, state.generator, carry)
@@ -74,7 +80,9 @@ class RecurrentPPO(PPO):
                 steps[k].append(x)
             obs = next_obs
         traj: Dict[str, Any] = {k: torch.stack(v) for k, v in steps.items()}
-        traj["carry0"] = state.carry
+        traj["carry0"] = carry0
+        obs, ep_ret, last_ret, carry = mesh_mod.to_local(
+            self.mesh, obs, ep_ret, last_ret, carry)
         state = state.replace(
             env_state=env_state, obs=obs, head_stats=stats, ep_return=ep_ret,
             last_ep_return=last_ret, carry=carry,

@@ -52,6 +52,7 @@ import torch
 from torch import nn
 from torch.func import functional_call
 
+from ..distributed import mesh as mesh_mod
 from ..networks.actor_critic import ACConfig, ActorCritic
 from ..networks.heads import update_activation_stats
 from ..networks.mlp import MLP
@@ -176,6 +177,17 @@ class SAC:
         self.target = make_target(net, cfg.algo)
         self.opt = make_optimizer(cfg, net)
         self.params = [p for g in self.opt.groups for p in g]
+        self.mesh: Optional[mesh_mod.DataMesh] = None    # set by shard()
+
+    def shard(self, mesh: mesh_mod.DataMesh) -> None:
+        """Make this algorithm one rank of a data-parallel run: its env
+        steps the rank's slice of the batch, every step's transitions go
+        into every rank's ring, and every rank runs the same gradient
+        steps, their gradients averaged over the ranks."""
+        mesh_mod.check_divisible(self.cfg.num_envs, mesh.world)
+        self.env = mesh_mod.ShardedEnv(self.env, mesh)
+        self.mesh = self.opt.mesh = mesh
+        self.opt.average = True
 
     # -- init ------------------------------------------------------------
     @torch.no_grad()
@@ -336,8 +348,9 @@ class SAC:
         the device once; the counters stay ints."""
         cfg, net, gen = self.cfg, self.net, state.generator
         buf, stats, gstep = state.buffer, state.head_stats, state.global_step
-        env_state, obs, ou = state.env_state, state.obs, state.ou_state
-        ep_ret, last_ret = state.ep_return, state.last_ep_return
+        env_state = state.env_state
+        obs, ou, ep_ret, last_ret = mesh_mod.to_global(
+            self.mesh, state.obs, state.ou_state, state.ep_return, state.last_ep_return)
         ran: List[Dict[str, torch.Tensor]] = []
         idle_alpha: List[torch.Tensor] = []
         for _ in range(cfg.steps_per_round):
@@ -372,6 +385,7 @@ class SAC:
         total = state.total_samples + cfg.steps_per_round * cfg.num_envs
         out["total_samples"] = total
         out["global_step"] = gstep
+        obs, ou, ep_ret, last_ret = mesh_mod.to_local(self.mesh, obs, ou, ep_ret, last_ret)
         state = state.replace(head_stats=stats, env_state=env_state, obs=obs,
                               global_step=gstep, total_samples=total, ep_return=ep_ret,
                               last_ep_return=last_ret, ou_state=ou)

@@ -49,6 +49,9 @@ class VTraceConfig:
 
 
 class VTrace(PPO):
+    # a sharded run computes every group's step on every rank
+    SPLIT_UPDATE = False
+
     def __init__(self, env, net, cfg: VTraceConfig = VTraceConfig()):
         super().__init__(env, net, PPOConfig(
             num_envs=cfg.num_envs, unroll_length=cfg.unroll_length,

@@ -1,0 +1,1 @@
+from .gym_adapter import Box, Env, GymEnv  # noqa: F401

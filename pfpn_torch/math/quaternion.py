@@ -18,6 +18,12 @@ def _cross(a, b):
     return torch.linalg.cross(*torch.broadcast_tensors(a, b))
 
 
+def quat_identity(shape=(), dtype=torch.float32, device=None) -> torch.Tensor:
+    q = torch.zeros(tuple(shape) + (4,), dtype=dtype, device=device)
+    q[..., 3] = 1.0
+    return q
+
+
 def quat_multiply(q1: torch.Tensor, q2: torch.Tensor) -> torch.Tensor:
     """Hamilton product q1 ⊗ q2 in xyzw order."""
     x1, y1, z1, w1 = q1.unbind(-1)
@@ -73,6 +79,32 @@ def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
         2.0 * (xz - wy), 2.0 * (yz + wx), 1.0 - 2.0 * (xx + yy),
     ], dim=-1)
     return m.reshape(m.shape[:-1] + (3, 3))
+
+
+def matrix_to_quat(m: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix -> quaternion (xyzw): of the four candidates (w, x, y
+    or z major), the one whose diagonal term is largest."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+
+    def major(d):
+        return torch.sqrt(torch.clamp(d, min=_EPS)) * 0.5
+
+    qw0 = major(1.0 + tr)
+    c0 = torch.stack([m21 - m12, m02 - m20, m10 - m01, 4.0 * qw0 * qw0], -1)
+    qx1 = major(1.0 + m00 - m11 - m22)
+    c1 = torch.stack([4.0 * qx1 * qx1, m01 + m10, m02 + m20, m21 - m12], -1)
+    qy2 = major(1.0 - m00 + m11 - m22)
+    c2 = torch.stack([m01 + m10, 4.0 * qy2 * qy2, m12 + m21, m02 - m20], -1)
+    qz3 = major(1.0 - m00 - m11 + m22)
+    c3 = torch.stack([m02 + m20, m12 + m21, 4.0 * qz3 * qz3, m10 - m01], -1)
+    cands = torch.stack([c0 / (4.0 * qw0[..., None]), c1 / (4.0 * qx1[..., None]),
+                         c2 / (4.0 * qy2[..., None]), c3 / (4.0 * qz3[..., None])], -2)
+    best = torch.argmax(torch.stack([tr, m00, m11, m22], -1), dim=-1)
+    idx = best[..., None, None].expand(best.shape + (1, 4))
+    return quat_normalize(torch.gather(cands, -2, idx)[..., 0, :])
 
 
 def quat_from_axis_angle(axis: torch.Tensor, angle: torch.Tensor) -> torch.Tensor:
@@ -131,6 +163,13 @@ def quat_slerp(q0: torch.Tensor, q1: torch.Tensor, t) -> torch.Tensor:
     return quat_normalize(w0 * q0 + w1 * q1)
 
 
+def angular_velocity_to_quat_derivative(q: torch.Tensor,
+                                        omega_local: torch.Tensor) -> torch.Tensor:
+    """dq/dt (xyzw) from a local-frame angular velocity: 0.5 q ⊗ (ω, 0)."""
+    zero = torch.zeros_like(omega_local[..., :1])
+    return 0.5 * quat_multiply(q, torch.cat([omega_local, zero], dim=-1))
+
+
 def quat_integrate_world(q: torch.Tensor, omega_world: torch.Tensor, dt) -> torch.Tensor:
     return quat_normalize(quat_multiply(quat_exp(omega_world * dt), q))
 
@@ -147,6 +186,20 @@ def quat_to_euler_zyx(q: torch.Tensor):
     pitch = torch.asin(torch.clamp(2.0 * (w * y - z * x), -1.0, 1.0))
     yaw = torch.atan2(2.0 * (w * z + x * y), 1.0 - 2.0 * (y * y + z * z))
     return roll, pitch, yaw
+
+
+def euler_zyx_to_quat(roll, pitch, yaw) -> torch.Tensor:
+    """Inverse of quat_to_euler_zyx."""
+    roll, pitch, yaw = (torch.as_tensor(a) for a in (roll, pitch, yaw))
+    cr, sr = torch.cos(roll * 0.5), torch.sin(roll * 0.5)
+    cp, sp = torch.cos(pitch * 0.5), torch.sin(pitch * 0.5)
+    cy, sy = torch.cos(yaw * 0.5), torch.sin(yaw * 0.5)
+    return torch.stack([
+        sr * cp * cy - cr * sp * sy,
+        cr * sp * cy + sr * cp * sy,
+        cr * cp * sy - sr * sp * cy,
+        cr * cp * cy + sr * sp * sy,
+    ], dim=-1)
 
 
 def yaw_about_up(q: torch.Tensor, up_dir: int = 1) -> torch.Tensor:

@@ -1,8 +1,9 @@
 """DeepMimic mocap loading and host-side preprocessing (NumPy).
 
-Counterpart of ``pfpn_tpu/mocap/loader.py``, its NumPy branch
-(``loader.py:211-232``), which ``tests/test_native.py`` holds bit-equivalent
-to the native one: frames reordered wxyz -> xyzw, per-frame velocities by
+Counterpart of ``pfpn_tpu/mocap/loader.py``, with both its branches: the
+native library (``mocap/native.py``) when ``csrc/libpfpn_mocap.so`` is
+built, else NumPy (``loader.py:211-232``), which ``tests/test_native.py``
+holds equal to the native one: frames reordered wxyz -> xyzw, per-frame velocities by
 finite difference to the next frame (world-frame for the base rotation,
 local-frame for spherical joints), the last frame copying its predecessor,
 then every velocity channel through the forward-backward Butterworth filter
@@ -165,29 +166,44 @@ def load_motion(tree: KinematicTree, name_or_path: str) -> MotionData:
         else:
             q_rev[:, rev_of_link[link]] = frames[:, sl.start]
 
+    # finite-difference velocities, then Butterworth smoothing of every
+    # channel: through the native library when it is built
+    # (loader.py:192-210), else in NumPy, which gives the same tables
+    from . import native
+
     fs = 1.0 / float(times[1]) if n > 1 else 30.0
     fc = 6.0
-    base_lin = np.zeros((n, 3))
-    base_ang = np.zeros((n, 3))
-    w_sph = np.zeros((n, tree.n_sph, 3))
-    w_rev = np.zeros((n, tree.n_rev))
-    for i in range(n - 1):
-        dt = dts[i]
-        base_lin[i] = (base_pos[i + 1] - base_pos[i]) / dt
-        base_ang[i] = _angular_vel_global(base_quat[i], base_quat[i + 1], dt)
+    if native.available():
+        base_lin = native.butterworth_fb(native.linear_velocities(base_pos, dts), fs, fc)
+        base_ang = native.butterworth_fb(
+            native.quat_velocities(base_quat, dts, local=False), fs, fc)
+        w_sph = np.zeros((n, tree.n_sph, 3))
         for s in range(tree.n_sph):
-            w_sph[i, s] = _angular_vel_local(q_sph[i, s], q_sph[i + 1, s], dt)
-        w_rev[i] = (q_rev[i + 1] - q_rev[i]) / dt
-    base_lin[-1] = base_lin[-2]
-    base_ang[-1] = base_ang[-2]
-    w_sph[-1] = w_sph[-2]
-    w_rev[-1] = w_rev[-2]
+            w_sph[:, s] = native.butterworth_fb(
+                native.quat_velocities(q_sph[:, s], dts, local=True), fs, fc)
+        w_rev = native.butterworth_fb(native.linear_velocities(q_rev, dts), fs, fc)
+    else:
+        base_lin = np.zeros((n, 3))
+        base_ang = np.zeros((n, 3))
+        w_sph = np.zeros((n, tree.n_sph, 3))
+        w_rev = np.zeros((n, tree.n_rev))
+        for i in range(n - 1):
+            dt = dts[i]
+            base_lin[i] = (base_pos[i + 1] - base_pos[i]) / dt
+            base_ang[i] = _angular_vel_global(base_quat[i], base_quat[i + 1], dt)
+            for s in range(tree.n_sph):
+                w_sph[i, s] = _angular_vel_local(q_sph[i, s], q_sph[i + 1, s], dt)
+            w_rev[i] = (q_rev[i + 1] - q_rev[i]) / dt
+        base_lin[-1] = base_lin[-2]
+        base_ang[-1] = base_ang[-2]
+        w_sph[-1] = w_sph[-2]
+        w_rev[-1] = w_rev[-2]
 
-    base_lin = so_fb_butter_lpf(base_lin, fs, fc)
-    base_ang = so_fb_butter_lpf(base_ang, fs, fc)
-    for s in range(tree.n_sph):
-        w_sph[:, s] = so_fb_butter_lpf(w_sph[:, s], fs, fc)
-    w_rev = so_fb_butter_lpf(w_rev, fs, fc)
+        base_lin = so_fb_butter_lpf(base_lin, fs, fc)
+        base_ang = so_fb_butter_lpf(base_ang, fs, fc)
+        for s in range(tree.n_sph):
+            w_sph[:, s] = so_fb_butter_lpf(w_sph[:, s], fs, fc)
+        w_rev = so_fb_butter_lpf(w_rev, fs, fc)
 
     f32 = lambda a: a.astype(np.float32)  # noqa: E731
     return MotionData(

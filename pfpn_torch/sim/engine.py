@@ -23,6 +23,12 @@ on. :meth:`Engine.control_step_links` runs the same megastep's
 ``EngineConfig.megastep_links``, or the JAX package's own
 ``PFPN_MEGASTEP_LINKS=1`` override (``engine.py:97-104``), sets
 ``Engine.megastep_links``, which routes the env step through it.
+
+``EngineConfig.fast_dynamics`` computes each substep's FK, H and C with the
+level-batched products of :mod:`~pfpn_torch.sim.batched` instead of the
+recursion (``engine.py:207-213``), in every branch of :meth:`substep` and
+in the megastep's plain version, as the JAX engine's ``_dynamics`` does;
+the megastep kernel computes its own dynamics.
 """
 
 from __future__ import annotations
@@ -40,6 +46,7 @@ from ..ops import linalg
 from ..ops import substep_lin
 from ..ops.megastep import Megastep, build_meta
 from ..ops.substep_lin import SubstepMeta, substep_core_reference
+from . import batched
 from . import contact as contact_mod
 from .contact import ContactParams, ContactSet
 from .dynamics import (_mv, advance, apply_joint_torques, const, crba, fk,
@@ -54,6 +61,8 @@ class EngineConfig:
     gravity: Tuple[float, float, float] = (0.0, -9.8, 0.0)
     contact: ContactParams = dataclasses.field(default_factory=ContactParams)
     control_mode: str = "spd"   # "spd" | "torque" | "position"
+    # FK, H and C by the level-batched products of sim/batched.py
+    fast_dynamics: bool = False
     # the substep's SPD and contact linear algebra in one kernel
     # (csrc/substep_lin.cu); SPD control only
     fused: bool = True
@@ -75,6 +84,8 @@ class Engine:
         self.config = config
         self.gains = gains
         self.contact_set: ContactSet = contact_mod.build_contact_set(tree)
+        self.batched_tables = (batched.build_tables(tree)
+                               if config.fast_dynamics else None)
         self.substep_meta = self._build_substep_meta()
         self.fused = config.fused and config.control_mode == "spd"
         self.meta = build_meta(tree, gains, config.contact, self.contact_set,
@@ -164,7 +175,11 @@ class Engine:
         return state, sol.link_contact
 
     def _dynamics(self, state: SimState):
+        """(fkr, H, C, v) by the recursion or the level-batched products."""
         tree = self.tree
+        if self.batched_tables is not None:
+            bd = batched.compute(tree, self.batched_tables, state, self.config.gravity)
+            return bd.fkr, bd.h, bd.c, bd.v
         fkr = fk(tree, state)
         h = crba(tree, fkr)
         c = rnea(tree, fkr, gravity=self.config.gravity)
