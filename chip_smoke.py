@@ -166,9 +166,16 @@ Phases, in order; any failure exits non-zero:
    parameters equal to rank 0's after both rounds;
 29. ``utils/profiling.py``: ``trace`` around one rollout step at B=8 writes
    a Chrome trace that holds the ``annotate`` region and the megastep
-   kernel.
+   kernel;
+30. ``step_autoreset`` at B=8192 with its plain PyTorch after the megastep
+   as a CUDA graph, in both megastep variants: bit-equal to the eager step
+   over 8 steps with resets, and the generator's next draw; ms per step of
+   each in turns; the counters (one capture, a replay every later step),
+   the peak memory; ``torch.profiler`` over two replays lists the graph's
+   kernels as device events and the two megastep launches.
+   ``python3 chip_smoke.py --env-graph`` runs it alone, after phase 1.
 
-Phases run in the order 1-9, 11-13, 26, then 10 (second process) beside
+Phases run in the order 1-9, 11-13, 26, 30, then 10 (second process) beside
 14, 18, 15, 19, 20, 22-25, 16, 21 and 27-29, then 17.
 
 Prints a ``{"kernels": [...]}`` line, the card's name and power limit, and
@@ -898,6 +905,128 @@ def phase_profiling(dev, card, work_dir):
     check(out["megastep_kernel"], f"profiling: the trace's {len(kernels)} device kernels "
           f"hold no megastep")
     return out
+
+
+def phase_env_graph(dev, card):
+    """Phase 30: ``step_autoreset`` at B=8192 with its plain PyTorch after
+    the megastep replayed as a CUDA graph, in both megastep variants:
+    bit-equal to the eager step over 8 steps with resets (the generator's
+    next draw too), ms per step of each in turns, the counters, the peak
+    memory and the graph's pool, and ``torch.profiler`` over replays
+    listing the graph's kernels as device events. Returns its readings."""
+    import torch
+
+    from pfpn_torch.envs.deepmimic import _leaves, make
+
+    def same(a, b):
+        la, lb = _leaves(a), _leaves(b)
+        return len(la) == len(lb) and all(x.dtype == y.dtype and torch.equal(x, y)
+                                          for x, y in zip(la, lb))
+
+    out = {}
+    for variant in ("default", "emit_links"):
+        env = make("DeepMimicWalk-v0", device=dev)
+        env.engine.megastep_links = variant == "emit_links"
+        gens = {side: torch.Generator(device=dev).manual_seed(30) for side in ("graph", "eager")}
+        g_act = torch.Generator(device=dev).manual_seed(31)
+        starts = {}
+        for side, g in gens.items():
+            st, _ = env.reset_batch(BIG_B, g)
+            # env i reaches the time limit at step 2 + i: resets in every step
+            k = torch.arange(BIG_B, device=dev) % 6 + 2
+            starts[side] = st.replace(init_time=st.elapsed_time - env.overtime
+                                      + k / env.fps - 1e-3)
+        steps = {"graph": lambda s, a: env.step_autoreset(s, a, gens["graph"]),
+                 "eager": lambda s, a: env._step_autoreset_eager(s, a, gens["eager"])}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        s = dict(starts)
+        equal, dones, capture_gb = [], 0, None
+        for k in range(8):
+            a = torch.rand(BIG_B, env.action_size, generator=g_act, device=dev) * 0.4 - 0.2
+            if k == 1:      # the capturing step: what the card reserves across it
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                r0 = torch.cuda.memory_reserved()
+                res = {"graph": steps["graph"](s["graph"], a)}
+                torch.cuda.synchronize()
+                capture_gb = (torch.cuda.memory_reserved() - r0) / 1e9
+                res["eager"] = steps["eager"](s["eager"], a)
+            else:
+                res = {side: fn(s[side], a) for side, fn in steps.items()}
+            equal.append(same(res["graph"], res["eager"]))
+            dones += int(res["eager"][2].done.sum())
+            s = {side: r[0] for side, r in res.items()}
+        torch.cuda.synchronize()
+        next_draw = torch.equal(torch.rand(8, generator=gens["graph"], device=dev),
+                                torch.rand(8, generator=gens["eager"], device=dev))
+        counters = {"eager_steps": env.eager_steps, "graph_captures": env.graph_captures,
+                    "graph_replays": env.graph_replays}
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+        state = dict(s)
+
+        def timed(side):
+            def fn():
+                a = torch.rand(BIG_B, env.action_size, generator=g_act, device=dev) * 0.4 - 0.2
+                state[side] = steps[side](state[side], a)[0]
+            return fn
+
+        ms_t = in_turns({side: timed(side) for side in steps}, reps=5, groups=3)
+
+        mega = env.engine.mega
+        launches0 = mega.launches + mega.launches_links
+        acts = torch.profiler.ProfilerActivity
+        with torch.profiler.profile(activities=[acts.CPU, acts.CUDA]) as prof:
+            for _ in range(2):
+                timed("graph")()
+            torch.cuda.synchronize()
+        prof_sum = profile_summary(prof, 2)
+        names = [e.name for e in prof.events()
+                 if e.device_type == torch.autograd.DeviceType.CUDA]
+        megastep_events = sum("megastep" in n for n in names)
+        r = {"bit_equal": equal, "dones_in_8_steps": dones, "next_draw_equal": next_draw,
+             "counters": counters, "peak_gb": peak_gb,
+             "reserved_over_capturing_step_gb": capture_gb,
+             "ms_per_step": {k: v[0] for k, v in ms_t.items()},
+             "ms_per_step_spread": {k: v[1:] for k, v in ms_t.items()},
+             "profile": {k: prof_sum.get(k) for k in ("busy_share", "kernels_per_step",
+                                                      "window_ms", "busy_ms")},
+             "megastep_events": megastep_events,
+             "megastep_launches": mega.launches + mega.launches_links - launches0,
+             "device_events": len(names)}
+        print(f"env graph, step_autoreset B={BIG_B} {variant} [{card}]: {json.dumps(r)}",
+              flush=True)
+        check(all(equal), f"env graph {variant}: graphed step differs from eager: {equal}")
+        check(dones > 0, f"env graph {variant}: no env reset in the compared steps")
+        check(next_draw, f"env graph {variant}: the generators' next draws differ")
+        check(counters == {"eager_steps": 1, "graph_captures": 1, "graph_replays": 7},
+              f"env graph {variant}: counters {counters}")
+        check(megastep_events == 2 and r["megastep_launches"] == 2,
+              f"env graph {variant}: {megastep_events} megastep events for 2 launches")
+        check((prof_sum.get("kernels_per_step") or 0) > 1000,
+              f"env graph {variant}: the profiler lists {prof_sum.get('kernels_per_step')} "
+              f"device events a step, not the graph's kernels")
+        out[variant] = r
+        del env, s, state, res, starts
+        torch.cuda.empty_cache()
+    return out
+
+
+def env_graph_main():
+    """Phase 30 alone (``chip_smoke.py --env-graph``), after phase 1."""
+    import torch
+
+    import pfpn_torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this script needs a CUDA card")
+    card = card_line()
+    print(f"card: {card}", flush=True)
+    print(f"torch {torch.__version__} cuda {torch.version.cuda} python {sys.version.split()[0]}")
+    out = phase_env_graph(pfpn_torch.resolve_device("cuda"), card)
+    print(json.dumps({"env_graph": out}))
+    print(json.dumps({"ok": True}))
 
 
 def main():
@@ -1733,6 +1862,9 @@ def main():
     # ---- 26. fast_dynamics on the card -----------------------------------------------
     fast_dyn = phase_fast_dynamics(dev, card, env, perturbed_sim, identity_targets,
                                    reset_counts, counts, in_turns)
+
+    # ---- 30. step_autoreset with its plain PyTorch as a CUDA graph --------------------
+    env_graph = phase_env_graph(dev, card)
 
     # ---- 10. the megastep-off path: play, in a second process ---------------------------
     # launch-bound on the host like phases 14-16, 18-25 and 27-29, so they run side
@@ -2730,6 +2862,7 @@ def main():
         "gym_adapter": gym,
         "data_parallel": data_parallel,
         "profiling": profiling,
+        "env_graph": env_graph,
     }, {
         "name": "spd_inverse",
         "route": "cuda",
@@ -2803,5 +2936,7 @@ if __name__ == "__main__":
         megastep_off_play(*sys.argv[2:4])
     elif sys.argv[1:2] == ["--dp-rank"]:
         dp_rank_main(int(sys.argv[2]), int(sys.argv[3]), *sys.argv[4:6])
+    elif sys.argv[1:2] == ["--env-graph"]:
+        env_graph_main()
     else:
         main()

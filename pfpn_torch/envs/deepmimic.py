@@ -16,7 +16,8 @@ with the megastep off or another control mode, a loop of
 channel (``step_log``, ``torque_log``), the 197-dim observation, the
 five-term imitation reward on the dense reference tables (or, with
 ``exact_ref_reward``, on the reference pose's own FK), ``reward_terms``,
-``step_batch`` and ``step_autoreset``.
+``step_batch`` and ``step_autoreset``, whose plain PyTorch after the
+megastep replays as a CUDA graph on the card (:class:`_StepGraph`).
 
 Every function takes the whole batch: the JAX env is per environment and
 batched with ``vmap``, here the leading dim ``B`` is written out. Random
@@ -37,6 +38,7 @@ from ..math import quaternion as quat
 from ..mocap.loader import LINK_TO_JOINT, MotionData, load_motion
 from ..mocap.motion import apply_base_offset, sample_pose, sync_position_offset
 from ..sim import contact as contact_mod
+from ..ops.megastep import Megastep, links_to_states, pack_state, unpack_state
 from ..sim.dynamics import LinkStates, const, fk, index_const, link_states
 from ..sim.contact import ContactParams
 from ..sim.engine import Engine, EngineConfig
@@ -44,6 +46,8 @@ from ..sim.types import KinematicTree, REVOLUTE, SimState, tree_map
 from .assets import HUMANOID_KD, HUMANOID_KP, humanoid_tree
 
 UP = 1  # y-up
+_UP_VEC = np.eye(3)[UP]
+_IDENTITY_QUAT = (0.0, 0.0, 0.0, 1.0)
 
 # reward constants (deepmimic.py:62-75)
 _SCALES = {"pose": 2.0, "vel": 0.1, "end_eff": 40.0, "root": 5.0, "com": 10.0}
@@ -117,6 +121,10 @@ class DeepMimicEnv:
         self._build_static_tables()
         self.observation_size = 2 + 15 * 7 + 15 * 6
         self.action_size = len(self.action_mean)
+        self._graphs = {}
+        self.eager_steps = 0
+        self.graph_captures = 0
+        self.graph_replays = 0
 
     # -- static tables ---------------------------------------------------
     def _build_action_space(self):
@@ -262,9 +270,8 @@ class DeepMimicEnv:
     def _heading_rot(self, base_quat: torch.Tensor) -> torch.Tensor:
         """(B, 3, 3) rotation undoing the heading about the up axis."""
         heading = quat.yaw_about_up(base_quat, UP)
-        up_vec = torch.zeros(3, device=base_quat.device)
-        up_vec[UP] = 1.0
-        return quat.quat_to_matrix(quat.quat_from_axis_angle(up_vec, -heading))
+        return quat.quat_to_matrix(
+            quat.quat_from_axis_angle(const(_UP_VEC, base_quat), -heading))
 
     def phase(self, state: EnvState) -> torch.Tensor:
         p = torch.remainder(state.elapsed_time / self.motion.duration, 1.0)
@@ -315,7 +322,6 @@ class DeepMimicEnv:
                 state, t_sph, t_rev, torques, return_torque=False)
             return self._finish(state, sim, elapsed, off, last_contact)
 
-        duration = self.motion.duration
         ls = None
         if self.engine.megastep_links:
             # the kernel also emits the final link states, which replace the
@@ -324,6 +330,14 @@ class DeepMimicEnv:
                 state.sim, t_sph, t_rev)
         else:
             sim, active, hist = self.engine.control_step_full(state.sim, t_sph, t_rev)
+        return self._after_megastep(state, sim, active, hist, ls)
+
+    def _after_megastep(self, state: EnvState, sim: SimState, active, hist,
+                        ls: Optional[LinkStates]) -> StepResult:
+        """The megastep branch of :meth:`step` after the kernel: contacts,
+        the phase-wrap re-sync and :meth:`_finish`. ``state.sim`` is not
+        read."""
+        duration = self.motion.duration
         last_contact = self.engine.link_contact_from_active(active)
 
         # phase-wrap re-sync (deepmimic.py:340-352): the wrap happens at most
@@ -424,9 +438,7 @@ class DeepMimicEnv:
         B = sim.base_pos.shape[0]
         base_height = sim.base_pos[:, UP]
         heading = quat.yaw_about_up(sim.base_quat, UP)
-        up_vec = torch.zeros(3, device=sim.base_pos.device)
-        up_vec[UP] = 1.0
-        inv_head = quat.quat_from_axis_angle(up_vec, -heading)
+        inv_head = quat.quat_from_axis_angle(const(_UP_VEC, sim.base_pos), -heading)
         rot = quat.quat_to_matrix(inv_head)
         origin = sim.base_pos.clone()
         origin[:, UP] = 0.0
@@ -452,7 +464,7 @@ class DeepMimicEnv:
             ls = link_states(self.tree, fk(self.tree, sim))
         ref = apply_base_offset(
             sample_pose(self.motion, state.elapsed_time), state.ref_pos_offset,
-            torch.tensor([0.0, 0.0, 0.0, 1.0], device=sim.base_pos.device))
+            const(_IDENTITY_QUAT, sim.base_pos))
 
         dq = quat.quat_diff(sim.base_quat, ref.base_quat)
         ang_dq = quat.quat_angle(dq)
@@ -525,14 +537,153 @@ class DeepMimicEnv:
 
         Returns (new_states, new_obs, StepResult): the StepResult is the
         pre-reset transition; new_states/new_obs are re-initialized where
-        done."""
+        done.
+
+        On the card, through the megastep, with no input requiring grad,
+        the step after the megastep launch replays a CUDA graph (see
+        :class:`_StepGraph`), one per batch size, megastep variant,
+        generator and device: the first call for each runs eagerly, the
+        second captures and replays, and the results are bit-equal to the
+        eager step's. ``eager_steps``, ``graph_captures`` and
+        ``graph_replays`` count what ran."""
+        key = self._graph_key(states, actions, generator)
+        graph = self._graphs.get(key) if key is not None else None
+        if graph is None:
+            self.eager_steps += 1
+            if key is not None:
+                self._graphs[key] = _StepGraph(self, actions.shape[0], generator,
+                                               actions.device)
+            return self._step_autoreset_eager(states, actions, generator)
+        if graph.graph is None:
+            graph.capture()
+            self.graph_captures += 1
+        self.graph_replays += 1
+        return graph(states, actions)
+
+    def _step_autoreset_eager(self, states: EnvState, actions: torch.Tensor,
+                              generator: Optional[torch.Generator] = None):
         res = self.step_batch(states, actions)
         reset_states, reset_obs = self.reset_batch(actions.shape[0], generator)
+        return self._pick_reset(res, reset_states, reset_obs)
 
+    @staticmethod
+    def _pick_reset(res: StepResult, reset_states: EnvState, reset_obs: torch.Tensor):
         def pick(r, n):
             return torch.where(res.done.reshape((-1,) + (1,) * (n.ndim - 1)), r, n)
 
         return (tree_map(pick, reset_states, res.state), pick(reset_obs, res.obs), res)
+
+    def _graph_key(self, states: EnvState, actions: torch.Tensor,
+                   generator: Optional[torch.Generator]):
+        """The key of the graph that may run this step, or None where the
+        step runs eagerly: off the card, off the megastep path, or where an
+        input requires grad."""
+        mega = self.engine.mega
+        if (not actions.is_cuda or mega is None or self.control_mode == "torque"
+                or any(t.requires_grad for t in _leaves((states, actions)))):
+            return None
+        return (actions.shape[0], self.engine.megastep_links, generator,
+                actions.device, mega)
+
+
+def _leaves(tree) -> list:
+    """The tensors of nested dataclasses, named tuples and tuples, in order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if dataclasses.is_dataclass(tree):
+        tree = [getattr(tree, f.name) for f in dataclasses.fields(tree)]
+    return [x for t in tree for x in _leaves(t)]
+
+
+def _rebuild(tree, leaves):
+    """``tree`` with its tensors replaced, in order, from the iterator
+    ``leaves``."""
+    if isinstance(tree, torch.Tensor):
+        return next(leaves)
+    if dataclasses.is_dataclass(tree):
+        return dataclasses.replace(tree, **{
+            f.name: _rebuild(getattr(tree, f.name), leaves)
+            for f in dataclasses.fields(tree)})
+    items = [_rebuild(t, leaves) for t in tree]
+    return type(tree)(*items) if hasattr(tree, "_fields") else tuple(items)
+
+
+class _StepGraph:
+    """:meth:`DeepMimicEnv.step_autoreset` of one batch size, megastep
+    variant, generator and device, with its plain PyTorch after the
+    megastep in a CUDA graph.
+
+    A call runs the action tables and the state packing eagerly (a few
+    dozen launches), copies the clock fields into a static buffer, launches
+    the megastep into static buffers, replays the graph, and clones each of
+    the graph's outputs, so that no result aliases a buffer the next replay
+    overwrites and each keeps only its own memory alive. The graph holds
+    the kernel's flags and link rows, contacts, the phase-wrap re-sync, fk
+    and link states (default variant), termination, reward, observation,
+    ``reset_batch`` with its draw from the registered generator, and the
+    picks: the eager step's operations, in its order, on the same operands.
+    The megastep stays a launch of its own, counted and named as in the
+    eager step."""
+
+    def __init__(self, env: DeepMimicEnv, batch: int,
+                 generator: Optional[torch.Generator], device: torch.device):
+        self.env, self.batch, self.generator = env, batch, generator
+        self.mega = env.engine.mega
+        self.links = env.engine.megastep_links
+        # the clock fields: elapsed_time, init_time, ref_pos_offset (3)
+        self.clock = torch.empty(batch, 5, device=device)
+        self.kernel_out = self.mega.outputs(batch, self.mega.meta.frame_skip,
+                                            device, self.links)
+        self.graph = None
+        self.result = None      # the step's result, static tensors
+        self.outputs = None     # its tensors, in _leaves order
+
+    def feed(self, states: EnvState, actions: torch.Tensor) -> None:
+        """The eager part: targets, packing, the clock copy, the megastep."""
+        env = self.env
+        t_sph, t_rev, _ = env._action_to_targets(env.unnormalize_action(actions))
+        st = pack_state(self.mega.meta, states.sim)
+        torch.cat([states.elapsed_time[:, None], states.init_time[:, None],
+                   states.ref_pos_offset], 1, out=self.clock)
+        self.mega.run(st, t_sph.reshape(self.batch, -1), t_rev, links=self.links,
+                      out=self.kernel_out)
+
+    def body(self) -> None:
+        """The step after the megastep, from the static buffers, into
+        :attr:`result`."""
+        env, meta = self.env, self.mega.meta
+        sim_out, active, hist = Megastep.result(*self.kernel_out)[:3]
+        sim = unpack_state(meta, sim_out, SimState(*([None] * 8)))
+        ls = links_to_states(meta, self.kernel_out[3]) if self.links else None
+        # the pre-step sim went into the kernel packed: nothing after it reads it
+        pre = EnvState(sim=None, elapsed_time=self.clock[:, 0],
+                       init_time=self.clock[:, 1], ref_pos_offset=self.clock[:, 2:])
+        res = env._after_megastep(pre, sim, active, hist, ls)
+        reset_states, reset_obs = env.reset_batch(self.batch, self.generator)
+        self.result = env._pick_reset(res, reset_states, reset_obs)
+        self.outputs = _leaves(self.result)
+
+    def capture(self) -> None:
+        """Record :meth:`body` as a CUDA graph (no draw is consumed and no
+        env steps while capturing)."""
+        graph = torch.cuda.CUDAGraph()
+        if self.generator is not None:
+            graph.register_generator_state(self.generator)
+        # thread_local: other threads of the process (a process group's
+        # watchdog, the profiler) may call CUDA while this one captures
+        with torch.cuda.device(self.clock.device), \
+                torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            self.body()
+        self.graph = graph
+
+    def fresh(self) -> tuple:
+        """The step's result: a new copy of each output."""
+        return _rebuild(self.result, (x.clone() for x in self.outputs))
+
+    def __call__(self, states: EnvState, actions: torch.Tensor):
+        self.feed(states, actions)
+        self.graph.replay()
+        return self.fresh()
 
 
 def make(env_name: str, device=None, **kwargs):

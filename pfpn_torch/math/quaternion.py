@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 _EPS = 1e-8
+_UNIT_X = (1.0, 0.0, 0.0)
 
 
 def _cross(a, b):
@@ -127,9 +128,10 @@ def quat_to_axis_angle(q: torch.Tensor):
     s = torch.linalg.vector_norm(v, dim=-1)
     angle = 2.0 * torch.atan2(s, w)
     safe = s > _EPS
-    unit_x = torch.tensor([1.0, 0.0, 0.0], dtype=q.dtype, device=q.device)
+    from ..sim.dynamics import const    # at the top it would import in a circle
+
     axis = torch.where(safe[..., None],
-                       v / torch.clamp(s, min=_EPS)[..., None], unit_x)
+                       v / torch.clamp(s, min=_EPS)[..., None], const(_UNIT_X, q))
     return axis, angle
 
 

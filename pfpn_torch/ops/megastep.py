@@ -539,13 +539,20 @@ class Megastep:
         return (sim,) + out[1:]
 
     def run(self, st, tgt_sph, tgt_rev, substeps: Optional[int] = None,
-            links: bool = False):
+            links: bool = False, out=None):
         """Packed interface: st (B, rows_state), tgt_sph (B, 4 n_sph),
         tgt_rev (B, n_rev) -> (st', active bool, hist (B, substeps, 3)),
-        plus the link rows (B, LINK_ROWS * n_links) with ``links``."""
+        plus the link rows (B, LINK_ROWS * n_links) with ``links``. With
+        ``out``, buffers as :meth:`outputs` makes them, the raw results
+        (the flags as 0/1 floats) go there and nothing is returned."""
         if st.is_cuda:
-            return self.kernel(st, tgt_sph, tgt_rev, substeps, links=links)
-        return self.plain(st, tgt_sph, tgt_rev, substeps, links=links)
+            return self.kernel(st, tgt_sph, tgt_rev, substeps, links=links, out=out)
+        res = self.plain(st, tgt_sph, tgt_rev, substeps, links=links)
+        if out is None:
+            return res
+        for o, r in zip(out, res):
+            o.copy_(r)
+        return None
 
     def _check(self, st, tgt_sph, tgt_rev, substeps) -> int:
         """Raise on inputs no version takes; returns the substep count
@@ -575,7 +582,8 @@ class Megastep:
                 ctypes.addressof(self.tables)))
         return self._shared_bytes
 
-    def _outputs(self, B: int, substeps: int, dev, links: bool):
+    def outputs(self, B: int, substeps: int, dev, links: bool):
+        """Empty (st', act, hist, link rows or None) buffers of one launch."""
         m = self.meta
         st_out = torch.empty(B, m.rows_state, device=dev)
         act = torch.empty(B, m.n_cand, device=dev)
@@ -584,15 +592,18 @@ class Megastep:
         return st_out, act, hist, rows
 
     @staticmethod
-    def _result(st_out, act, hist, rows):
+    def result(st_out, act, hist, rows):
+        """The raw buffers of one launch as :meth:`run` returns them."""
         out = (st_out, act > 0.5, hist)
         return out if rows is None else out + (rows,)
 
     # -- the kernel ---------------------------------------------------------
     def kernel(self, st, tgt_sph, tgt_rev, substeps: Optional[int] = None,
-               links: bool = False, threads: Optional[int] = None):
+               links: bool = False, threads: Optional[int] = None, out=None):
         """Launch csrc/megastep.cu, one block per env; ``threads`` per block
-        (a multiple of 32, at most 256; None for the source's default)."""
+        (a multiple of 32, at most 256; None for the source's default).
+        With ``out`` (buffers as :meth:`outputs` makes them) the kernel
+        writes there and nothing is returned."""
         substeps = self._check(st, tgt_sph, tgt_rev, substeps)
         if not st.is_cuda:
             raise ValueError("megastep kernel needs CUDA tensors")
@@ -607,7 +618,7 @@ class Megastep:
             tables = raw.to(dev)
             self._tables_dev[dev] = tables
         B = st.shape[0]
-        st_out, act, hist, rows = self._outputs(B, substeps, dev, links)
+        st_out, act, hist, rows = out or self.outputs(B, substeps, dev, links)
         with torch.cuda.device(dev):     # the launch goes to the current device
             rc = lib.pfpn_megastep_launch(
                 tables.data_ptr(), st.data_ptr(), tgt_sph.data_ptr(),
@@ -621,7 +632,7 @@ class Megastep:
             self.launches_links += 1
         else:
             self.launches += 1
-        return self._result(st_out, act, hist, rows)
+        return None if out else self.result(st_out, act, hist, rows)
 
     # -- the CUDA source's arithmetic on the host ---------------------------
     def host(self, st, tgt_sph, tgt_rev, substeps: Optional[int] = None,
@@ -634,7 +645,7 @@ class Megastep:
                                 for x in (st, tgt_sph, tgt_rev))
         lib = LIBRARY.load(host=True)
         B = st.shape[0]
-        st_out, act, hist, rows = self._outputs(B, substeps, "cpu", links)
+        st_out, act, hist, rows = self.outputs(B, substeps, "cpu", links)
         rc = lib.pfpn_megastep_host(
             ctypes.addressof(self.tables), st.data_ptr(), tgt_sph.data_ptr(),
             tgt_rev.data_ptr(), st_out.data_ptr(), act.data_ptr(),
@@ -642,7 +653,7 @@ class Megastep:
             B, substeps, int(threads))
         if rc != 0:
             raise ValueError(f"megastep host build: threads={threads} refused")
-        return self._result(st_out, act, hist, rows)
+        return self.result(st_out, act, hist, rows)
 
     # -- the plain version ----------------------------------------------------
     def plain(self, st, tgt_sph, tgt_rev, substeps: Optional[int] = None,
