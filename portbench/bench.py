@@ -133,22 +133,6 @@ class Run:
         print(f"portbench: {text}", file=sys.stderr, flush=True)
 
 
-def reference_net(cfg: Dict, device, state: Optional[Dict] = None):
-    """The reference actor-critic of ``cfg``, with the configuration's
-    ``.npz`` weights read by the reference's own loader, or ``state``."""
-    import numpy as np
-
-    from .reference.policy import ActorCritic, state_dict_from_npz
-
-    net = ActorCritic(cfg["obs_dim"], cfg["action_dim"], cfg["particles"],
-                      cfg["actor_shape"], cfg["critic_shape"], cfg["clip_state"]).to(device)
-    if state is None:
-        with np.load(os.path.join(ROOT, cfg["weights"])) as z:
-            state = state_dict_from_npz({k: z[k] for k in z.files})
-    net.load_state_dict({k: v.to(device) for k, v in state.items()})
-    return net
-
-
 def set_tf32(on: bool) -> None:
     import torch
 
@@ -156,13 +140,22 @@ def set_tf32(on: bool) -> None:
     torch.backends.cudnn.allow_tf32 = on
 
 
+def algorithm(cell: Cell):
+    """The configuration's algorithm module, ``algos/<algorithm>.py``."""
+    from . import algos
+
+    return algos.load(cell.config["algorithm"])
+
+
 def check(cell: Cell, out: Dict, device) -> Dict[str, float]:
     """The numbers the limits hold: the reference, in float32 with TF32
     off, judging what the port produced; in training after following the
-    port's first updates, each step record with the weights of its round."""
+    port's first updates (the algorithm's module), each step record with
+    the weights of its round."""
     from . import judge
     from .reference import env as ref_env_mod
 
+    algo = algorithm(cell)
     set_tf32(False)
     ref_env = ref_env_mod.make(cell.config["env"], device=device)
     readings = []
@@ -180,45 +173,30 @@ def check(cell: Cell, out: Dict, device) -> Dict[str, float]:
 
     upd = out["updates"]
     if upd is None:
-        judge_round(None, reference_net(cell.config, device))
+        judge_round(None, algo.reference_net(cell.config, device))
         return judge.combine(readings)
-    losses, grad1, params = _ref_updates(cell, upd, device, judge_round)
+    ref = algo.ref_updates(cell, upd, device, judge_round)
+    grad1 = ref["grad1"]
     left_out = sorted(set(grad1) - set(judge.moving_leaves(grad1)))
     print(f"portbench: leaves left out of the change (reference gradient under 1e-3 "
           f"of the median leaf's): {left_out}", file=sys.stderr)
     w0 = {k: v.to(device) for k, v in upd["w0"].items()}
-    got_change = {n: upd["params3"][n].to(device) - w0[n] for n in upd["names"]}
-    want_change = {n: params[n] - w0[n] for n in upd["names"]}
+    got = upd["params"]
+    if got is None:
+        print(f"portbench: the port made fewer than {algo.STEPS} optimizer steps in set-up; "
+              f"its change reads 0", file=sys.stderr)
+        got = w0
+    got_change = {n: got[n].to(device) - w0[n] for n in upd["names"]}
+    want_change = {n: ref["params"][n] - w0[n] for n in upd["names"]}
+    steps = algo.STEPS
     readings.append(judge.judge_updates(
-        upd["losses"], losses, {n: g.to(device) for n, g in upd["grad1"].items()},
-        grad1, got_change, want_change))
+        upd["losses"][:steps], ref["losses"][:steps],
+        {n: g.to(device) for n, g in upd["grad1"].items()},
+        grad1, got_change, want_change,
+        loss_against_median=getattr(algo, "LOSS_AGAINST_MEDIAN", False)))
+    if hasattr(algo, "judge_steps"):
+        readings.append(algo.judge_steps(cell, upd, device))
     return judge.combine(readings)
-
-
-def _ref_updates(cell: Cell, upd: Dict, device, judge_round=None, half: bool = False):
-    """The reference's three updates from ``w0`` on the port's rollouts:
-    (losses, the first clipped gradients, the parameters after the last);
-    ``judge_round(k, net)`` runs before update k. ``half`` plants a fault:
-    each update over the first half of the envs only."""
-    from .reference.a2c import A2CReference, A2CSettings
-
-    cfg = cell.config
-    net = reference_net(cfg, device, upd["w0"])
-    ref = A2CReference(net, A2CSettings(
-        gamma=cfg["gamma"], lambd=cfg["lambd"], value_loss_coef=cfg["value_loss_coef"],
-        entropy_beta=cfg["entropy_beta"], lr=cfg["lr_actor"], norm_clip=cfg["norm_clip"]))
-    losses, grad1 = [], None
-    for k, traj in enumerate(upd["rounds"]):
-        if judge_round is not None:
-            judge_round(k, net)
-        if half:
-            traj = {key: v[:, :v.shape[1] // 2] for key, v in traj.items()}
-        loss, grads = ref.update({key: v.to(device) for key, v in traj.items()})
-        losses.append(loss)
-        if k == 0:
-            grad1 = grads
-    params = {n: p.detach().clone() for n, p in net.named_parameters()}
-    return losses, grad1, params
 
 
 def control(cell: Cell, out: Dict, device) -> Dict[str, float]:
@@ -227,21 +205,21 @@ def control(cell: Cell, out: Dict, device) -> Dict[str, float]:
     is an NVIDIA matmul mode)."""
     from .reference import env as ref_env_mod
 
+    algo = algorithm(cell)
     upd = out["updates"]
     set_tf32(True)
     try:
         low_env = ref_env_mod.make(cell.config["env"], device=device)
         if upd is None:
-            nets, low_upd = {None: reference_net(cell.config, device)}, None
+            nets, low_upd = {None: algo.reference_net(cell.config, device)}, None
         else:
             snaps = {}
 
             def keep(k, net):
                 snaps[k] = {n: p.detach().clone() for n, p in net.state_dict().items()}
 
-            losses, grad1, params = _ref_updates(cell, upd, device, keep)
-            nets = {k: reference_net(cell.config, device, s) for k, s in snaps.items()}
-            low_upd = dict(upd, losses=losses, grad1=grad1, params3=params)
+            low_upd = dict(upd, **algo.ref_updates(cell, upd, device, keep))
+            nets = {k: algo.reference_net(cell.config, device, s) for k, s in snaps.items()}
         records = [(k, _low_record(rec.to(device), low_env, nets[k]))
                    for k, rec in out["records"]]
     finally:
@@ -249,26 +227,39 @@ def control(cell: Cell, out: Dict, device) -> Dict[str, float]:
     return check(cell, {"records": records, "updates": low_upd}, device)
 
 
+def _one_env_off(rec):
+    """``rec`` with one env's physics wrong wherever it is checked: the
+    lowest-numbered checked env's revolute joint angles 1e-3 rad (five
+    times their bound) off after the step, and so in the state it keeps."""
+    env = rec.env == rec.env.min()
+    post = {k: v.clone() for k, v in rec.post.items()}
+    post["q_rev"][env] += 1e-3
+    new_state = {k: v.clone() for k, v in rec.new_state.items()}
+    new_state["q_rev"][env & ~rec.done] += 1e-3
+    return dataclasses.replace(rec, post=post, new_state=new_state)
+
+
 def faults(cell: Cell, out: Dict, device) -> Dict[str, Dict[str, float]]:
     """The numbers of faults planted in what the port produced or in the
-    reference put in its place: every reward 0.1% off where it is produced;
-    in training also an optimizer step that leaves the state unchanged and
-    updates over half the batch, the mean taken over the rest."""
-    import torch
-
+    reference put in its place: every reward 0.1% off where it is produced,
+    one env's physics off (:func:`_one_env_off`); in training also an
+    optimizer step that leaves the state unchanged and the algorithm's own
+    (``FAULTS`` of its module: updates over half the batch, the mean taken
+    over the rest, and others)."""
+    algo = algorithm(cell)
     readings = {}
     upd = out["updates"]
-    recs = [(k, dataclasses.replace(rec, reward=rec.reward * 1.001))
-            for k, rec in out["records"]]
-    readings["altered_reward"] = check(cell, {"records": recs, "updates": upd}, device)
+    for name, alter in (
+            ("altered_reward", lambda rec: dataclasses.replace(rec, reward=rec.reward * 1.001)),
+            ("one_env_physics", _one_env_off)):
+        recs = [(k, alter(rec)) for k, rec in out["records"]]
+        readings[name] = check(cell, {"records": recs, "updates": upd}, device)
     if upd is not None:
-        same = dict(upd, params3={n: upd["w0"][n] for n in upd["names"]},
-                    grad1={n: torch.zeros_like(g) for n, g in upd["grad1"].items()})
         readings["state_unchanged"] = check(cell, {"records": out["records"],
-                                                   "updates": same}, device)
-        losses, grad1, params = _ref_updates(cell, upd, device, half=True)
-        readings["half_batch"] = check(cell, {"records": out["records"], "updates": dict(
-            upd, losses=losses, grad1=grad1, params3=params)}, device)
+                                                   "updates": algo.unchanged(upd)}, device)
+        for fault in algo.FAULTS:
+            readings[fault] = check(cell, {"records": out["records"], "updates": dict(
+                upd, **algo.ref_updates(cell, upd, device, fault=fault))}, device)
     return readings
 
 

@@ -11,15 +11,18 @@ knife-edge contact), on rows of the batch drawn from the seed:
 * the physics: one control step of the reference from the port's pre-step
   state and clipped action; an env is out when a state group leaves its
   bound (the bounds of ``chip_smoke.py``'s control-step check) or its
-  termination differs, and the share of envs out is compared;
+  termination differs, and the share of rows out is compared (a record's
+  rows: one step's, or in training all of a round's checked steps');
 * observation and reward: the reference's, of the port's post-step state
   (with ``emit_links`` this holds the kernel's link states);
 * bookkeeping, exactly: time, truncation, done, and the untouched envs;
 * auto-reset: the reference's reset at the port's drawn start times;
-* training: the reference follows the port's first three updates from the
-  same weights and the port's rollouts, and the loss of each, the first
-  clipped gradient (from the port's Adam state after one step) and the
-  parameters' change after three steps are compared leaf by leaf.
+* training: the reference (the algorithm's module, ``algos/<name>.py``)
+  follows the port's set-up rounds from the same weights and the port's
+  rollouts, and the loss of each of its first ``STEPS`` optimizer steps,
+  the first clipped gradient (from the port's Adam state after one step)
+  and the parameters' change after them are compared, the last two leaf
+  by leaf; a module may judge more (``judge_steps``).
 
 A number's value is a gap or a share; its limit is in ``limits/<cell>.json``.
 """
@@ -60,8 +63,9 @@ def ref_state(d: Dict[str, torch.Tensor]):
 
 @dataclasses.dataclass
 class StepRecord:
-    """One env step of the timed path on the checked rows: its inputs (pre,
-    obs, action, clipped) and the port's outputs."""
+    """Env steps of the timed path on the checked rows: their inputs (pre,
+    obs, action, clipped) and the port's outputs; each row one env at one
+    step."""
 
     pre: Dict[str, torch.Tensor]
     obs: torch.Tensor
@@ -77,6 +81,7 @@ class StepRecord:
     truncated: torch.Tensor
     new_state: Dict[str, torch.Tensor]
     new_obs: torch.Tensor
+    env: torch.Tensor           # the env of each row
 
     def to(self, device) -> "StepRecord":
         def mv(x):
@@ -98,7 +103,18 @@ def record(rows, pre, obs, action, clipped, log_prob, value, res, new_state,
         res_obs=res.obs[rows].clone(), reward=res.reward[rows].clone(),
         done=res.done[rows].clone(), terminated=res.terminated[rows].clone(),
         truncated=res.truncated[rows].clone(), new_state=flat_state(new_state, rows),
-        new_obs=new_obs[rows].clone())
+        new_obs=new_obs[rows].clone(), env=rows.clone())
+
+
+def concat(records: List[StepRecord]) -> StepRecord:
+    """The rows of several records as one (each row keeps its own step's
+    inputs and outputs)."""
+    def cat(xs):
+        if isinstance(xs[0], dict):
+            return {k: torch.cat([x[k] for x in xs]) for k in xs[0]}
+        return torch.cat(xs)
+    return StepRecord(**{f.name: cat([getattr(r, f.name) for r in records])
+                         for f in dataclasses.fields(StepRecord)})
 
 
 def check_rows(batch: int, n: int, done: torch.Tensor, generator: torch.Generator,
@@ -177,19 +193,25 @@ def combine(readings: List[Dict[str, float]]) -> Dict[str, float]:
 
 # -- training ----------------------------------------------------------------
 
-def leaf_gaps(got: Dict[str, torch.Tensor], want: Dict[str, torch.Tensor],
-              keep: Optional[List[str]] = None) -> float:
-    """The worst leaf's gap between the norms of ``got`` and ``want``,
-    against the reference's norm of that leaf or of the median leaf,
-    whichever is larger."""
+def worst_leaf(got: Dict[str, torch.Tensor], want: Dict[str, torch.Tensor],
+               keep: Optional[List[str]] = None):
+    """(gap, name) of the worst leaf: the gap between the norms of ``got``
+    and ``want``, against the reference's norm of that leaf or of the
+    median leaf, whichever is larger."""
     names = keep if keep is not None else list(want)
     norms = {k: float(want[k].double().norm()) for k in names}
     med = sorted(norms.values())[len(norms) // 2]
-    worst = 0.0
+    worst = (0.0, None)
     for k in names:
         gap = abs(float(got[k].double().norm()) - norms[k])
-        worst = max(worst, gap / max(norms[k], med, 1e-30))
+        worst = max(worst, (gap / max(norms[k], med, 1e-30), k), key=lambda w: w[0])
     return worst
+
+
+def leaf_gaps(got: Dict[str, torch.Tensor], want: Dict[str, torch.Tensor],
+              keep: Optional[List[str]] = None) -> float:
+    """The worst leaf's gap (:func:`worst_leaf`)."""
+    return worst_leaf(got, want, keep)[0]
 
 
 def moving_leaves(grads: Dict[str, torch.Tensor]) -> List[str]:
@@ -200,13 +222,25 @@ def moving_leaves(grads: Dict[str, torch.Tensor]) -> List[str]:
     return [k for k, n in norms.items() if n >= 1e-3 * med]
 
 
+def loss_gap(got: List[float], want: List[float], against_median: bool = False) -> float:
+    """The worst loss's gap, against the reference's loss (or, with
+    ``against_median``, that or the median loss's magnitude, whichever is
+    larger: a loss near 0, as a normalized-advantage surrogate's, keeps the
+    round-off of the terms it cancels)."""
+    floor = sorted(abs(w) for w in want)[len(want) // 2] if against_median else 0.0
+    return max(abs(g - w) / max(abs(w), floor, 1e-6) for g, w in zip(got, want))
+
+
 def judge_updates(losses_got: List[float], losses_want: List[float],
                   grad_got: Dict[str, torch.Tensor], grad_want: Dict[str, torch.Tensor],
                   change_got: Dict[str, torch.Tensor],
-                  change_want: Dict[str, torch.Tensor]) -> Dict[str, float]:
-    loss_gap = max(abs(g - w) / max(abs(w), 1e-6) for g, w in zip(losses_got, losses_want))
+                  change_want: Dict[str, torch.Tensor],
+                  loss_against_median: bool = False) -> Dict[str, float]:
+    """The worst loss's gap (:func:`loss_gap`), the first gradients' and
+    the change's by :func:`leaf_gaps`."""
     keep = moving_leaves(grad_want)
-    return {"loss_gap": loss_gap, "grad_gap": leaf_gaps(grad_got, grad_want),
+    return {"loss_gap": loss_gap(losses_got, losses_want, loss_against_median),
+            "grad_gap": leaf_gaps(grad_got, grad_want),
             "change_gap": leaf_gaps(change_got, change_want, keep)}
 
 

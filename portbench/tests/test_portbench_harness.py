@@ -154,3 +154,59 @@ print(json.dumps(res["metrics"]))
     metrics = json.loads(out.stdout.strip().splitlines()[-1])
     assert metrics["steps_in_window.act"]["value"] >= 1
     assert metrics["steps_in_window.act"]["unit"] == "steps"
+
+
+def test_a_new_algorithm_needs_only_new_files(tmp_path):
+    """A copy of the benchmark gains a training cell whose configuration
+    names an algorithm module that is a new file (a stub that delegates to
+    A2C under another name), with its own configuration, traffic and limits
+    files and their entries in BENCHMARK.json, and no file of the benchmark
+    edited: the check reaches the stub's reference and the run is correct."""
+    shutil.copytree(os.path.join(ROOT, "portbench"), tmp_path / "portbench",
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    for name in ("pfpn_torch", "pfpn_tpu", "results"):
+        os.symlink(os.path.join(ROOT, name), tmp_path / name)
+    before = {p: open(p, "rb").read() for p in glob.glob(
+        str(tmp_path / "portbench" / "**" / "*"), recursive=True) if os.path.isfile(p)}
+    pb = tmp_path / "portbench"
+    (pb / "algos" / "stub_a2c.py").write_text(
+        "import sys\n"
+        "from portbench.algos import a2c\n"
+        "from portbench.algos.a2c import *  # noqa: F401,F403\n"
+        "FAULTS, STEPS = a2c.FAULTS, a2c.STEPS\n\n\n"
+        "def ref_updates(*args, **kw):\n"
+        "    print('stub_a2c: ref_updates reached', file=sys.stderr)\n"
+        "    return a2c.ref_updates(*args, **kw)\n")
+    cfg = json.load(open(pb / "configs" / "a3c_pfpn35_walk.json"))
+    cfg.update(name="stub_pfpn35_walk", algorithm="stub_a2c")
+    (pb / "configs" / "stub_pfpn35_walk.json").write_text(json.dumps(cfg))
+    traffic = json.load(open(pb / "traffic" / "train_b8192.json"))
+    traffic.update(env_multiplier=1, unroll_length=2, check_rows=6)
+    (pb / "traffic" / "train_tiny.json").write_text(json.dumps(traffic))
+    cell = "stub_pfpn35_walk.train_tiny"
+    shutil.copy(pb / "limits" / "a3c_pfpn35_walk.train_b8192.json",
+                pb / "limits" / f"{cell}.json")
+    spec = json.load(open(os.path.join(ROOT, "BENCHMARK.json")))
+    spec["configs"].append({"name": "stub_pfpn35_walk", "source": cfg["source"],
+                            "file": "portbench/configs/stub_pfpn35_walk.json",
+                            "reduced": [], "why": "A2C under another name"})
+    spec["workloads"].append({"name": cell, "config": "stub_pfpn35_walk",
+                              "traffic": "train_tiny", "chips": 1, "why": "16 envs"})
+    for m in spec["end_to_end"]:
+        if "workloads" in m and "a3c_pfpn35_walk.train_b8192" in m["workloads"]:
+            m["workloads"].append(cell)
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(spec))
+    code = f"""
+import json, sys
+sys.path.insert(0, {str(tmp_path)!r})
+from portbench import bench
+res = bench.run_cell({cell!r}, 2**31 + 29, 0.1, False, device="cpu")
+print(json.dumps({{"correct": res["correct"], "metrics": sorted(res["metrics"])}}))
+"""
+    out = _python(code, cwd=str(tmp_path))
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "stub_a2c: ref_updates reached" in out.stderr
+    got = json.loads(out.stdout.strip().splitlines()[-1])
+    assert got == {"correct": True, "metrics": ["samples_per_s", "setup_s"]}
+    for p, data in before.items():
+        assert open(p, "rb").read() == data, p

@@ -79,31 +79,50 @@ class Trace:
         return {"device_ops": [[n, us / 1e6] for n, us in ops], "idle_gaps": gaps}
 
 
-def _device_us(e) -> Optional[float]:
-    for attr in ("device_time_total", "cuda_time_total"):
-        v = getattr(e, attr, None)
-        if v is not None:
-            return float(v)
-    return None
-
-
 def from_profiler(prof, steps: int) -> Trace:
-    """A :class:`Trace` from a finished ``torch.profiler.profile``."""
+    """A :class:`Trace` from a finished ``torch.profiler.profile``, read from
+    the profiler's raw events: the events ``prof.events()`` would list, with
+    the same names and times, without building its tree of objects (minutes
+    for a traced training round of ~2 M events). A region's device time is
+    what ``prof.events()`` gives it: the kernels linked to the region and to
+    the operations inside it on its thread."""
     from torch.autograd import DeviceType
 
-    device_ops, host_ops, regions = [], [], {}
-    for e in prof.events():
-        span = (e.name, float(e.time_range.start), float(e.time_range.end))
-        if e.device_type == DeviceType.CUDA:
-            if e.name.startswith(REGION_PREFIX) or getattr(e, "is_user_annotation", False):
+    from torch.autograd.profiler_util import _filter_name, _rewrite_name
+
+    res = prof.profiler.kineto_results
+    t0 = res.trace_start_ns()
+    device_ops, host_ops = [], []
+    frontend, marks, kernel_us = [], [], {}
+    for e in res.events():
+        name = e.name()
+        if _filter_name(name) or getattr(e, "is_hidden_event", lambda: False)():
+            continue
+        name = _rewrite_name(name, with_wildcard=True)
+        span = (name, (e.start_ns() - t0) / 1000, (e.end_ns() - t0) / 1000)
+        if e.device_type() == DeviceType.CUDA:
+            if name.startswith(REGION_PREFIX) or e.is_user_annotation():
                 continue
             device_ops.append(span)
-        else:
-            host_ops.append(span)
-            if e.name.startswith(REGION_PREFIX):
-                us = _device_us(e)
-                if us is not None:
-                    regions[e.name] = regions.get(e.name, 0.0) + us
+            link = e.linked_correlation_id()
+            kernel_us[link] = kernel_us.get(link, 0.0) + (span[2] - span[1])
+            continue
+        host_ops.append(span)
+        if (e.device_type() == DeviceType.CPU and e.linked_correlation_id() == 0
+                and not e.is_async() and e.start_thread_id() == e.end_thread_id()):
+            op = (span[1], span[2], e.start_thread_id(), e.correlation_id())
+            frontend.append(op)
+            if name.startswith(REGION_PREFIX):
+                marks.append((name, op))
+    regions: Dict[str, float] = {}
+    if marks:
+        frontend.sort()
+        starts = [op[0] for op in frontend]
+        for name, (a, b, thread, _) in marks:
+            lo, hi = bisect.bisect_left(starts, a), bisect.bisect_right(starts, b)
+            us = sum(kernel_us.get(cid, 0.0) for _, ob, th, cid in frontend[lo:hi]
+                     if th == thread and ob <= b)
+            regions[name] = regions.get(name, 0.0) + us
     return Trace(device_ops, host_ops, regions, steps)
 
 
