@@ -89,9 +89,10 @@ class ClippedAdam:
     """Per clip group: the global-norm clip, then Adam."""
 
     def __init__(self, groups: Sequence[Sequence[torch.nn.Parameter]],
-                 lrs: Sequence[float], max_norm: Optional[float]):
+                 lrs: Sequence[float], max_norm: Optional[float], capturable: bool = False):
         self.groups = [list(g) for g in groups]
         self.max_norm = max_norm
+        self.capturable = capturable    # Adam's step counts on the device (CUDA graphs)
         # set on a rank of a data-parallel run: the gradients are summed over
         # the ranks before the clip where each rank's loss is its share of a
         # split minibatch, averaged where every rank computes the whole step
@@ -99,7 +100,7 @@ class ClippedAdam:
         self.average = False
         self.adam = torch.optim.Adam(
             [{"params": g, "lr": lr} for g, lr in zip(self.groups, lrs)],
-            betas=(0.9, 0.999), eps=1e-8)
+            betas=(0.9, 0.999), eps=1e-8, capturable=capturable)
 
     def zero_grad(self) -> None:
         self.adam.zero_grad(set_to_none=True)
@@ -119,7 +120,27 @@ class ClippedAdam:
         return self.adam.state_dict()
 
     def load_state_dict(self, sd: dict) -> None:
+        """Adam's state from ``sd``, copied into the tensors it already holds
+        where their shapes and devices agree, so that a CUDA graph captured
+        on them steps from the restored values."""
+        held = {p: dict(s) for p, s in self.adam.state.items()}
         self.adam.load_state_dict(sd)
+        for p, s in self.adam.state.items():
+            for k, old in held.get(p, {}).items():
+                new = s.get(k)
+                if (torch.is_tensor(old) and torch.is_tensor(new) and old.shape == new.shape
+                        and old.device == new.device and old.dtype == new.dtype):
+                    old.copy_(new)
+                    s[k] = old
+
+    def set_capturable(self, on: bool) -> None:
+        """Adam's step counts on the device (``on``) or on the host."""
+        self.capturable = on
+        for g in self.adam.param_groups:
+            g["capturable"] = on
+        for s in self.adam.state.values():
+            if "step" in s:
+                s["step"] = s["step"].to(s["exp_avg"].device if on else "cpu")
 
 
 def make_optimizer(cfg: PPOConfig, net: ActorCritic) -> ClippedAdam:

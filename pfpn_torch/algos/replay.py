@@ -9,7 +9,8 @@ wrapping around the ring (``:88-99``); a draw is one gather of
 [0, max(size, 1)) (``:107-111``) with the run's generator.
 
 ``pointer`` and ``size`` are Python ints, so that gating on "enough
-samples" costs no host sync.
+samples" costs no host sync; so are the counters ``rows_inserted`` and
+``rows_drawn``.
 """
 
 from __future__ import annotations
@@ -51,6 +52,8 @@ class ReplayBuffer:
         self.data = torch.zeros(capacity, width, device=next(iter(example.values())).device)
         self.pointer = 0
         self.size = 0
+        self.rows_inserted = 0
+        self.rows_drawn = 0
 
     @property
     def capacity(self) -> int:
@@ -69,14 +72,22 @@ class ReplayBuffer:
         self.data[idx] = packed
         self.pointer = (self.pointer + n) % self.capacity
         self.size = min(self.size + n, self.capacity)
+        self.rows_inserted += n
 
     def contents(self) -> Dict[str, torch.Tensor]:
         """The whole ring as per-field (capacity, ...) tensors."""
         return self._unpack(self.data)
 
+    def draw_indices(self, batch_size: int,
+                     generator: Optional[torch.Generator]) -> torch.Tensor:
+        """``batch_size`` slots drawn uniformly with replacement from the
+        filled part."""
+        return torch.randint(0, max(self.size, 1), (batch_size,), generator=generator,
+                             device=self.data.device)
+
     def sample(self, batch_size: int,
                generator: Optional[torch.Generator]) -> Dict[str, torch.Tensor]:
-        """``batch_size`` transitions drawn uniformly with replacement."""
-        idx = torch.randint(0, max(self.size, 1), (batch_size,), generator=generator,
-                            device=self.data.device)
+        """``batch_size`` transitions at :meth:`draw_indices`' slots."""
+        idx = self.draw_indices(batch_size, generator)
+        self.rows_drawn += batch_size
         return self._unpack(self.data[idx])

@@ -39,6 +39,17 @@ Semantics kept from the JAX package:
 Random draws come from the run's ``torch.Generator``; :meth:`SAC.update_draws`
 makes an update's noise apart from :meth:`SAC._update_step`, so that a test
 can feed the JAX package's draws.
+
+On one card SAC's gradient steps after the first replay a CUDA graph of the
+step after its draws (:class:`_UpdateGraph`); the draws, the ring's gather
+and PFPN resampling stay eager.
+
+Tracing: each env step's part of a round (the behaviour action, the clip,
+``step_autoreset``, the ring insert and the episode bookkeeping) is the
+named region ``sac.env_step``, each gradient step (the draw from the ring,
+``update_draws`` and ``_update_step``) the region ``sac.update_step``
+(``utils/profiling.annotate``); ``SAC.env_steps`` and ``SAC.grad_steps``
+count them as Python ints, with no host sync.
 """
 
 from __future__ import annotations
@@ -57,6 +68,7 @@ from ..networks.actor_critic import ACConfig, ActorCritic
 from ..networks.heads import update_activation_stats
 from ..networks.mlp import MLP
 from ..networks.resample import maybe_resample
+from ..utils.profiling import annotate
 from .ppo import PPO, ClippedAdam
 from .replay import ReplayBuffer
 
@@ -136,7 +148,12 @@ def make_optimizer(cfg: SACConfig, net: SACNet) -> ClippedAdam:
                else "actor"].append(p)
     lrs = {"actor": cfg.lr_actor, "critic": cfg.lr_critic, "alpha": cfg.lr_alpha}
     kept = [k for k in groups if groups[k]]
-    return ClippedAdam([groups[k] for k in kept], [lrs[k] for k in kept], cfg.norm_clip)
+    # Adam's step counts on the card where SAC's step can run as a CUDA graph
+    # (:class:`_UpdateGraph`): SAC on one card, outside a process group
+    capturable = (cfg.algo == "sac" and next(net.parameters()).is_cuda
+                  and mesh_mod.current_mesh() is None)
+    return ClippedAdam([groups[k] for k in kept], [lrs[k] for k in kept], cfg.norm_clip,
+                       capturable=capturable)
 
 
 @dataclasses.dataclass
@@ -178,6 +195,9 @@ class SAC:
         self.opt = make_optimizer(cfg, net)
         self.params = [p for g in self.opt.groups for p in g]
         self.mesh: Optional[mesh_mod.DataMesh] = None    # set by shard()
+        self.env_steps = 0      # env steps run by train_round, each of num_envs samples
+        self.grad_steps = 0     # gradient steps run by train_round
+        self._graph: Optional[_UpdateGraph] = None
 
     def shard(self, mesh: mesh_mod.DataMesh) -> None:
         """Make this algorithm one rank of a data-parallel run: its env
@@ -188,6 +208,7 @@ class SAC:
         self.env = mesh_mod.ShardedEnv(self.env, mesh)
         self.mesh = self.opt.mesh = mesh
         self.opt.average = True
+        self.opt.set_capturable(False)      # a rank's step runs eagerly
 
     # -- init ------------------------------------------------------------
     @torch.no_grad()
@@ -307,38 +328,62 @@ class SAC:
         return loss
 
     # -- one gradient step ---------------------------------------------------
-    def _update_step(self, batch: Dict[str, torch.Tensor], draws: Dict, gstep: int,
-                     stats: Dict, generator: Optional[torch.Generator]):
-        """One gradient step (``sac.py:269-313``). Returns (global_step,
-        head_stats, metrics as device scalars)."""
+    def _apply(self, batch: Dict[str, torch.Tensor], draws: Dict, gstep: int,
+               new_step) -> Dict[str, torch.Tensor]:
+        """The step after its draws: the losses, one backward, the clip and
+        Adam, the targets' Polyak step and the normalizer's moving average at
+        ``new_step`` (an int, or a device tensor inside a CUDA graph).
+        Returns the metrics as device scalars."""
         cfg, net = self.cfg, self.net
-        self.opt.zero_grad()
         closs = self._critic_loss(batch, draws)
         aloss = self._actor_loss(batch, draws, gstep)
         loss = closs + aloss
-        loss.backward()
+        # backward on this thread, not autograd's device thread: the eager
+        # step is host-paced, and the graph is captured on this thread
+        with torch.autograd.set_multithreading_enabled(False):
+            loss.backward()
         for p in self.params:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         self.opt.step()
-        gstep += 1
 
         with torch.no_grad():
             names = ["q1", "q2"]
-            if cfg.algo == "ddpg" and (cfg.policy_delay <= 1 or gstep % cfg.policy_delay == 0):
+            if cfg.algo == "ddpg" and (cfg.policy_delay <= 1
+                                       or (gstep + 1) % cfg.policy_delay == 0):
                 names += [k for k in ACTOR_PARTS if k in self.target]
             tgt = [t for k in names for t in self.target[k].parameters()]
             src = [p for k in names for p in getattr(net, k).parameters()]
             torch._foreach_mul_(tgt, 1.0 - cfg.tau)
             torch._foreach_add_(tgt, src, alpha=cfg.tau)
         if net.cfg.normalize_state:
-            net.norm.update_moving_average(batch["obs"], gstep)
-        if net.is_pfpn and net.cfg.head.resample:
-            stats = maybe_resample(net.cfg.head, net.head, stats, generator)
+            net.norm.update_moving_average(batch["obs"], new_step)
         metrics = {"loss": loss.detach(), "critic_loss": closs.detach(),
                    "actor_loss": aloss.detach()}
         if cfg.algo == "sac":
             metrics["alpha"] = torch.exp(net.log_alpha.detach())
+        return metrics
+
+    def _update_step(self, batch: Dict[str, torch.Tensor], draws: Dict, gstep: int,
+                     stats: Dict, generator: Optional[torch.Generator]):
+        """One gradient step (``sac.py:269-313``). Returns (global_step,
+        head_stats, metrics as device scalars). SAC's steps on one card,
+        after the first, replay a CUDA graph of :meth:`_apply`
+        (:class:`_UpdateGraph`); DDPG's, a data-parallel rank's and the CPU's
+        run eagerly."""
+        graph = self._graph
+        if graph is not None and graph.fits(batch):
+            metrics = graph(batch, draws, gstep)
+        else:
+            self.opt.zero_grad()
+            metrics = self._apply(batch, draws, gstep, gstep + 1)
+            if (self.cfg.algo == "sac" and self.mesh is None
+                    and batch["obs"].is_cuda and self.opt.capturable):
+                self._graph = _UpdateGraph(self, batch, draws)
+        gstep += 1
+        net = self.net
+        if net.is_pfpn and net.cfg.head.resample:
+            stats = maybe_resample(net.cfg.head, net.head, stats, generator)
         return gstep, stats, metrics
 
     # -- one round -------------------------------------------------------------
@@ -354,21 +399,26 @@ class SAC:
         ran: List[Dict[str, torch.Tensor]] = []
         idle_alpha: List[torch.Tensor] = []
         for _ in range(cfg.steps_per_round):
-            a, aux, ou = self._explore_action(obs, ou, gen)
-            if net.is_pfpn and "probs" in aux:
-                stats = update_activation_stats(stats, aux["probs"])
-            a_env = self._clip_action(a)
-            env_state, next_obs, res = self.env.step_autoreset(env_state, a_env, gen)
-            buf.add_batch({"obs": obs, "action": a_env, "reward": res.reward,
-                           "not_terminal": 1.0 - res.terminated.float(), "next_obs": res.obs})
-            ep_ret = ep_ret + res.reward
-            last_ret = torch.where(res.done, ep_ret, last_ret)
-            ep_ret = torch.where(res.done, torch.zeros_like(ep_ret), ep_ret)
+            with annotate("sac.env_step"):
+                a, aux, ou = self._explore_action(obs, ou, gen)
+                if net.is_pfpn and "probs" in aux:
+                    stats = update_activation_stats(stats, aux["probs"])
+                a_env = self._clip_action(a)
+                env_state, next_obs, res = self.env.step_autoreset(env_state, a_env, gen)
+                buf.add_batch({"obs": obs, "action": a_env, "reward": res.reward,
+                               "not_terminal": 1.0 - res.terminated.float(),
+                               "next_obs": res.obs})
+                ep_ret = ep_ret + res.reward
+                last_ret = torch.where(res.done, ep_ret, last_ret)
+                ep_ret = torch.where(res.done, torch.zeros_like(ep_ret), ep_ret)
+            self.env_steps += 1
             if buf.size >= cfg.batch_size + cfg.warmup:
                 for _ in range(cfg.updates_per_step):
-                    batch = buf.sample(cfg.batch_size, gen)
-                    gstep, stats, m = self._update_step(
-                        batch, self.update_draws(cfg.batch_size, gen), gstep, stats, gen)
+                    with annotate("sac.update_step"):
+                        batch = buf.sample(cfg.batch_size, gen)
+                        gstep, stats, m = self._update_step(
+                            batch, self.update_draws(cfg.batch_size, gen), gstep, stats, gen)
+                    self.grad_steps += 1
                     ran.append(m)
             elif cfg.algo == "sac":
                 idle_alpha.append(torch.exp(net.log_alpha.detach()))
@@ -390,3 +440,58 @@ class SAC:
                               global_step=gstep, total_samples=total, ep_return=ep_ret,
                               last_ep_return=last_ret, ou_state=ou)
         return state, out
+
+
+class _UpdateGraph:
+    """:meth:`SAC._apply` for one batch size as a CUDA graph.
+
+    SAC's gradient step on one card is small gemms at batch 256 behind
+    ~540 launches, so the host's launches pace it. A call copies the
+    step's batch and draws (drawn eagerly from the run's generator, as the
+    eager step draws them) and its new step count into static buffers and
+    replays the graph: the losses, one backward into the gradients the
+    graph owns, the per-group clip and Adam (``capturable``, its step
+    counts on the card), the targets' Polyak step and the normalizer's
+    moving average, the eager step's operations in its order on the same
+    operands; then it clones the metrics. The graph is captured at the
+    second step, after an eager step has set up Adam's state and the
+    libraries' lazy state, and holds the storage of the parameters, their
+    gradients, the targets, Adam's state and the normalizer: these are
+    updated in place (``maybe_resample`` and ``sync_target`` too)."""
+
+    def __init__(self, algo: SAC, batch: Dict[str, torch.Tensor], draws: Dict):
+        self.algo = algo
+        self.batch = {k: torch.empty_like(v) for k, v in batch.items()}
+        self.draws = {k: {kk: torch.empty_like(vv) for kk, vv in d.items()}
+                      for k, d in draws.items()}
+        self.new_step = torch.zeros((), device=batch["obs"].device)
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self.metrics: Dict[str, torch.Tensor] = {}
+
+    def fits(self, batch: Dict[str, torch.Tensor]) -> bool:
+        return all(batch[k].shape == v.shape for k, v in self.batch.items())
+
+    def capture(self) -> None:
+        """Record :meth:`SAC._apply` on the static buffers (nothing runs
+        while capturing). The gradients are set to None first, so that the
+        backward allocates them from the graph's memory."""
+        algo = self.algo
+        algo.opt.zero_grad()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.device(self.new_step.device), \
+                torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            self.metrics = algo._apply(self.batch, self.draws, 0, self.new_step)
+        self.graph = graph
+
+    def __call__(self, batch: Dict[str, torch.Tensor], draws: Dict,
+                 gstep: int) -> Dict[str, torch.Tensor]:
+        for k, v in batch.items():
+            self.batch[k].copy_(v)
+        for k, d in draws.items():
+            for kk, vv in d.items():
+                self.draws[k][kk].copy_(vv)
+        self.new_step.fill_(gstep + 1)
+        if self.graph is None:
+            self.capture()
+        self.graph.replay()
+        return {k: v.clone() for k, v in self.metrics.items()}

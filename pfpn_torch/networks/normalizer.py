@@ -21,13 +21,19 @@ from torch import nn
 
 @torch.no_grad()
 def moving_average(mean: torch.Tensor, std: torch.Tensor, batch: torch.Tensor,
-                   global_step: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                   global_step) -> Tuple[torch.Tensor, torch.Tensor]:
     """(mean, std) after reference utils.py:60-68 over ``batch``'s first
-    axis, as normalizer.py:44 computes it in fp32 (the decay on the host,
-    in numpy's fp32: no copy to the device)."""
-    s = np.float32(global_step)
-    decay = np.minimum(np.float32(0.9999), (np.float32(1.0) + s) / (np.float32(10.0) + s))
-    decay, rest = float(decay), float(np.float32(1.0) - decay)
+    axis, as normalizer.py:44 computes it in fp32: the decay on the host, in
+    numpy's fp32 (no copy to the device), or, where ``global_step`` is a
+    float32 device tensor (inside a CUDA graph), on the device in the same
+    fp32 arithmetic."""
+    if isinstance(global_step, torch.Tensor):
+        decay = torch.clamp((1.0 + global_step) / (10.0 + global_step), max=0.9999)
+        rest = 1.0 - decay
+    else:
+        s = np.float32(global_step)
+        decay = np.minimum(np.float32(0.9999), (np.float32(1.0) + s) / (np.float32(10.0) + s))
+        decay, rest = float(decay), float(np.float32(1.0) - decay)
     m = torch.mean(batch, 0)
     v = torch.var(batch, 0, correction=0)
     return (decay * mean + rest * m,
@@ -48,7 +54,7 @@ class Normalizer(nn.Module):
         return y
 
     @torch.no_grad()
-    def update_moving_average(self, batch: torch.Tensor, global_step: int) -> None:
+    def update_moving_average(self, batch: torch.Tensor, global_step) -> None:
         """:func:`moving_average` into the buffers."""
         mean, std = moving_average(self.mean, self.std, batch, global_step)
         self.mean.copy_(mean)
